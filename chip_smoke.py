@@ -1,0 +1,260 @@
+"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from the sources in this checkout, holds each kernel
+against its plain PyTorch version on the card, runs CP-ALS at NELL-2's
+published size (12,092 x 9,184 x 28,818, 76,879,419 non-zeros, synthetic
+stand-in with seed 0 and zipf skew 1.1) through `repro_torch.api.decompose`,
+and measures the kernel.  Phases, each printing one JSON line:
+
+  a  device   the card (nvidia-smi name and power limit), CUDA version
+  b  build    nvcc build of every kernel, seconds, ptxas report
+  c  check    kernel vs plain version on 3-, 4- and 5-mode presets and on
+              every mode of the NELL-2-size tensor; CUDA vs CPU CP-ALS fits
+              on a small tensor; kernel, plain and sweep timings
+  d  main     decompose(st, 16, format="cp", iters=5, seed=0) with the launch
+              counter reset just before and read just after
+
+then the `kernels` line, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
+Imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.api import decompose  # noqa: E402
+from repro_torch.core.coo import frostt_like, synthetic_tensor  # noqa: E402
+from repro_torch.core.cp_als import fit_value  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
+from repro_torch.kernels.ops import make_planned_cp_als  # noqa: E402
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
+# tensor cores.  Used for the kernel's least possible time (bound_ms).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+RANK = 16
+ITERS = 5
+NELL2_SHAPE = (12_092, 9_184, 28_818)
+NELL2_NNZ = 76_879_419
+NELL2_SKEW = 1.1
+PRESETS = ("tiny", "4d_small", "5d_small")
+# Kernel vs its plain version evaluated in float64 on the same float32
+# inputs: the largest error relative to each output column's max.  The kernel
+# sums in float32 with atomics, in a varying order; the error grows with the
+# contributions per output row (a hot row of the zipf tensor at NELL-2 size
+# collects millions).  The float64 evaluation keeps the plain version's own
+# rounding out of the measurement (its float32 evaluation, index_add_ on the
+# card, is an atomic float32 sum too); its float32 error is reported beside.
+TOL_PRESET = 1e-5
+TOL_FULL = 1e-4
+# CUDA vs CPU CP-ALS on the small tensor: the same float32 algorithm with
+# sums taken in another order; the ROADMAP's fit bar.
+TOL_FIT = 1e-5
+# Fit may not drop by more than this between iterations (ALS is monotone up
+# to float32 rounding).
+FIT_DROP = 1e-5
+KERNEL_REPS = 20
+PLAIN_REPS = 3
+SWEEP_REPS = 3
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean ms per call over `reps` calls after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def errors(got: torch.Tensor, exact: torch.Tensor) -> tuple[float, float]:
+    """(max abs error, max error relative to each column's max of exact)."""
+    diff = (got.double() - exact).abs()
+    col = exact.abs().amax(0).clamp_min(1e-300)
+    return float(diff.max()), float((diff.amax(0) / col).max())
+
+
+def check_kernel(plan, facs, tol: float, what: str) -> dict:
+    """Kernel vs the plain version in float64 (and the plain version in
+    float32 vs the same), on the same inputs."""
+    ker = mttkrp_blocked(plan, facs)
+    torch.cuda.synchronize()
+    exact = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
+                                 [f.double() for f in facs])
+    abs_err, rel_err = errors(ker, exact)
+    plain_abs, plain_rel = errors(mttkrp_blocked_plain(plan, facs), exact)
+    check(rel_err <= tol, f"{what}: kernel rel err {rel_err} > {tol}")
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err,
+            "plain_f32_max_abs_err": plain_abs, "plain_f32_max_rel_err": plain_rel}
+
+
+def bound(shape, nnz: int, mode: int, rank: int) -> tuple[float, str]:
+    """Least time (ms) for one mode's MTTKRP on this data: each input read
+    once (the true nnz stream of value + N indices, each input factor),
+    the output written once; flops = N per non-zero and rank column."""
+    n = len(shape)
+    nbytes = nnz * 4 * (1 + n) + sum(shape) * rank * 4
+    flops = nnz * rank * n
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def random_padded(plan, rp: int, gen: torch.Generator) -> list[torch.Tensor]:
+    return [torch.randn((rows, rp), generator=gen, device="cuda") for rows in plan.in_rows]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
+              file=sys.stderr)
+        return 1
+
+    # float32 products in full float32 (no TF32), stated and set.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    emit({"phase": "a", "nvidia_smi": smi, "device": name, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for lib in libs.values() if Path(str(lib) + ".log").is_file()
+             for ln in Path(str(lib) + ".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "b", "build_s": build_s, "libraries": sorted(libs), "ptxas": ptxas})
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rp = rank_padded(RANK)
+    presets = []
+    for preset in PRESETS:
+        st = frostt_like(preset)
+        ws = make_planned_cp_als(st, RANK, device="cuda")
+        for m in range(st.nmodes):
+            plan = ws.plan_for(m)
+            facs = random_padded(plan, rp, gen)
+            presets.append({"preset": preset, "mode": m, "n_in": plan.n_in,
+                            **check_kernel(plan, facs, TOL_PRESET, f"{preset} mode {m}")})
+        del ws
+
+    tiny = frostt_like("tiny")
+    init = [torch.randn((s, RANK), generator=gen, device="cuda") / math.sqrt(RANK) for s in tiny.shape]
+    on_gpu = decompose(tiny, RANK, iters=3, init_factors=init, device="cuda").fit_history
+    on_cpu = decompose(tiny, RANK, iters=3, init_factors=[f.cpu() for f in init], device="cpu").fit_history
+    fit_gap = max(abs(a - b) for a, b in zip(on_gpu, on_cpu))
+    check(fit_gap <= TOL_FIT, f"tiny CP-ALS fits, cuda {on_gpu} vs cpu {on_cpu}")
+
+    t0 = time.perf_counter()
+    st = synthetic_tensor(NELL2_SHAPE, NELL2_NNZ, seed=0, skew=NELL2_SKEW)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ws = make_planned_cp_als(st, RANK, device="cuda")
+    torch.cuda.synchronize()
+    plan_build_s = time.perf_counter() - t0
+    modes = []
+    for m in range(st.nmodes):
+        plan = ws.plan_for(m)
+        facs = random_padded(plan, rp, gen)
+        errs = check_kernel(plan, facs, TOL_FULL, f"NELL-2 mode {m}")
+        bound_ms, bound_by = bound(st.shape, st.nnz, m, RANK)
+        modes.append({
+            "mode": m, "nblocks": plan.nblocks, "slots": plan.nblocks * plan.blk,
+            "padding": plan.padding_fraction(), "output_tile_runs": plan.output_tile_runs(),
+            **errs,
+            "ms": cuda_ms(lambda: mttkrp_blocked(plan, facs), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: mttkrp_blocked_plain(plan, facs), PLAIN_REPS),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        del facs
+    idx = torch.from_numpy(st.indices).cuda()
+    val = torch.from_numpy(st.values).cuda()
+    norm_x_sq = torch.tensor(float((st.values.astype("float64") ** 2).sum()), device="cuda")
+    facs = ws.pad_factors([torch.randn((s, RANK), generator=gen, device="cuda") / math.sqrt(RANK)
+                           for s in st.shape])
+    facs, lam, _ = ws.sweep(facs, idx, val, norm_x_sq, first=True)
+    sweep_ms = cuda_ms(lambda: ws.sweep(facs, idx, val, norm_x_sq), SWEEP_REPS)
+    true = [f[:s, :RANK] for f, s in zip(facs, st.shape)]
+    fit_ms = cuda_ms(lambda: fit_value(idx, val, true, lam, norm_x_sq), SWEEP_REPS)
+    del ws, facs, true, idx, val
+    torch.cuda.empty_cache()
+    emit({"phase": "c", "presets": presets, "tiny_fit_gap_cuda_cpu": fit_gap,
+          "nell2_modes": modes, "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
+
+    torch.cuda.reset_peak_memory_stats()
+    mttkrp_blocked.launches = 0
+    t0 = time.perf_counter()
+    state = decompose(st, RANK, format="cp", iters=ITERS, seed=0)
+    torch.cuda.synchronize()
+    decompose_s = time.perf_counter() - t0
+    launches = mttkrp_blocked.launches
+    fits = state.fit_history
+    check(len(fits) == ITERS and all(math.isfinite(f) for f in fits), f"fits {fits}")
+    check(all(b >= a - FIT_DROP for a, b in zip(fits, fits[1:])), f"fit dropped: {fits}")
+    check(launches == st.nmodes * ITERS, f"{launches} kernel launches, expected {st.nmodes * ITERS}")
+    check(all(tuple(f.shape) == (s, RANK) and bool(torch.isfinite(f).all())
+              for f, s in zip(state.factors, st.shape)), "factor shapes or values")
+    emit({"phase": "d", "shape": list(st.shape), "nnz": st.nnz, "rank": RANK, "iters": ITERS,
+          "gen_s": gen_s, "plan_build_s": plan_build_s, "decompose_s": decompose_s,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(), "fits": fits,
+          "launches": launches, "sweep_ms": sweep_ms, "fit_ms": fit_ms,
+          "kernel_ms": [x["ms"] for x in modes], "plain_ms": [x["plain_ms"] for x in modes],
+          "bound_ms": [x["bound_ms"] for x in modes]})
+
+    emit({"kernels": [{
+        "name": "mttkrp_blocked",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
+        "replaces": "src/repro/kernels/mttkrp_pallas.py:53 _kernel",
+        "launches": launches,
+        "per": f"one sweep: {st.nmodes} launches, one per mode",
+        "max_abs_err": max(x["max_abs_err"] for x in modes),
+        "max_rel_err": max(x["max_rel_err"] for x in modes),
+        "ms": sum(x["ms"] for x in modes),
+        "plain_ms": sum(x["plain_ms"] for x in modes),
+        "bound_ms": sum(x["bound_ms"] for x in modes),
+        "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
+        "library_ms": None,
+    }]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,132 @@
+"""Planned MTTKRP and the planned CP-ALS workspace.
+
+Counterpart of the MTTKRP part of `repro.kernels.ops`: `PlannedMTTKRP` holds
+one output mode's device-resident BlockPlan and runs the kernel on it;
+`PlannedCPALS` holds one per mode, built once and reused by every ALS
+iteration (the plan/remap cost is amortized over the decomposition).  No
+plan cache and no sharding yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.coo import SparseTensor
+from ..core.cp_als import _update_mode, fit_value
+from ..core.memctrl import MemoryControllerConfig
+from ..core.remap import BlockPlan, plan_blocks
+from ..device import resolve_device
+from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
+from .workspace import PlannedWorkspace
+
+__all__ = ["PlannedMTTKRP", "make_planned_mttkrp", "PlannedCPALS", "make_planned_cp_als"]
+
+
+@dataclasses.dataclass
+class PlannedMTTKRP:
+    """One (tensor, output mode): the device-resident BlockPlan and a
+    callable running the MTTKRP kernel on it."""
+
+    plan: BlockPlan
+    rank: int
+    cfg: MemoryControllerConfig = dataclasses.field(default_factory=MemoryControllerConfig)
+
+    def __call__(self, *in_factors: torch.Tensor) -> torch.Tensor:
+        """True-shape factors of the N-1 input modes (plan.in_modes order).
+        Returns (plan.out_rows, rank)."""
+        p = self.plan
+        if len(in_factors) != p.n_in:
+            raise ValueError(f"{len(in_factors)} factors for {p.n_in} input modes")
+        rp = rank_padded(self.rank)
+        pads = [pad_factor(f, rows, rp) for f, rows in zip(in_factors, p.in_rows)]
+        return mttkrp_blocked(p, pads)[:, : self.rank]
+
+
+def make_planned_mttkrp(
+    st: SparseTensor,
+    mode: int,
+    rank: int,
+    *,
+    cfg: MemoryControllerConfig | None = None,
+    device: str | torch.device | None = None,
+) -> PlannedMTTKRP:
+    """Build one mode's memory layout (the Tensor Remapper) on `device`."""
+    cfg = cfg or MemoryControllerConfig()
+    plan = plan_blocks(
+        st,
+        mode,
+        tile_i=cfg.cache.tile_i,
+        blk=cfg.dma.blk,
+        in_tiles=cfg.cache.input_tiles(st.nmodes - 1),
+        device=resolve_device(device),
+    )
+    return PlannedMTTKRP(plan=plan, rank=rank, cfg=cfg)
+
+
+@dataclasses.dataclass
+class PlannedCPALS(PlannedWorkspace):
+    """Per-mode plans driving the whole CP-ALS loop: one `PlannedMTTKRP` per
+    output mode, built once; the drive loop and padding come from
+    `PlannedWorkspace`, this class supplies the CP sweep."""
+
+    ops: dict[int, PlannedMTTKRP]
+    shape: tuple[int, ...]
+    rank: int
+
+    @property
+    def lane_ranks(self) -> tuple[int, ...]:
+        return (self.rank,) * self.nmodes
+
+    @property
+    def rank_pad(self) -> int:
+        return rank_padded(self.rank)
+
+    @property
+    def device(self) -> torch.device:
+        return self.ops[0].plan.device
+
+    def plan_for(self, mode: int) -> BlockPlan:
+        return self.ops[mode].plan
+
+    def _geoms(self) -> dict[int, BlockPlan]:
+        return {m: op.plan for m, op in self.ops.items()}
+
+    def sweep(self, facs, idx, val, norm_x_sq, *, first: bool = False):
+        """One ALS iteration in padded space.
+
+        `facs` is the padded factor tuple (`pad_factors` or a previous
+        sweep's result).  Each mode's new factor is written IN PLACE into
+        the true block of its padded tensor (padding rows and lanes stay
+        exactly 0), so a sweep allocates no new padded factors.  `idx`,
+        `val`: the raw COO stream on the device, read only by the fit;
+        `norm_x_sq`: ||X||_F^2 as a device scalar; `first`: the
+        first-iteration normalization.  Returns (padded factors, lam, fit)."""
+        shape, rank = self.shape, self.rank
+        facs = tuple(facs)
+        lam = None
+        for m in range(self.nmodes):
+            p = self.ops[m].plan
+            in_facs = [facs[im][: p.in_rows[n]] for n, im in enumerate(p.in_modes)]
+            mt = mttkrp_blocked(p, in_facs)[: shape[m], :rank]
+            true = [f[:s, :rank] for f, s in zip(facs, shape)]
+            true, lam = _update_mode(mt, true, m, first)
+            facs[m][: shape[m], :rank] = true[m]
+        true = [f[:s, :rank] for f, s in zip(facs, shape)]
+        fit = fit_value(idx, val, true, lam, norm_x_sq)
+        return facs, lam, fit
+
+
+def make_planned_cp_als(
+    st: SparseTensor,
+    rank: int,
+    *,
+    cfg: MemoryControllerConfig | None = None,
+    device: str | torch.device | None = None,
+) -> PlannedCPALS:
+    """Build the ALS workspace: one plan per output mode on `device` (CUDA
+    unless given).  This is the whole layout-generation cost the
+    decomposition amortizes."""
+    device = resolve_device(device)
+    ops = {m: make_planned_mttkrp(st, m, rank, cfg=cfg, device=device) for m in range(st.nmodes)}
+    return PlannedCPALS(ops=ops, shape=st.shape, rank=rank)

@@ -1,0 +1,67 @@
+"""The port stands alone: no JAX and nothing of the JAX package in
+`src/repro_torch/` or `chip_smoke.py`; and its device contract — CUDA by
+default, an error (not a silent CPU run) when there is no GPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.api import decompose
+from repro_torch.core import coo as tcoo
+from repro_torch.core.remap import plan_blocks
+from repro_torch.kernels.mttkrp import mttkrp_blocked
+from repro_torch.kernels.ops import make_planned_cp_als
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+
+
+def imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+    return names
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_repro(path):
+    for name in imported_modules(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch.api, repro_torch.convert, repro_torch.kernels.build; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    subprocess.run([sys.executable, "-c", code], check=True, env=env, timeout=120)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_gpu_and_device(no_cuda):
+    st = tcoo.frostt_like("tiny")
+    for call in (lambda: decompose(st, 4),
+                 lambda: make_planned_cp_als(st, 4),
+                 lambda: plan_blocks(st, 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert len(decompose(st, 4, iters=1, device="cpu").fit_history) == 1
+
+
+def test_cpu_run_launches_no_kernel():
+    before = mttkrp_blocked.launches
+    decompose(tcoo.frostt_like("tiny"), 4, iters=2, device="cpu")
+    assert mttkrp_blocked.launches == before == 0

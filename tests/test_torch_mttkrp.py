@@ -1,0 +1,159 @@
+"""Port parity for the module that holds the MTTKRP kernel
+(`repro_torch.kernels.mttkrp`): its plain version against the reference's
+Pallas kernel (interpret mode, as the reference's own tests run it) and the
+reference's plan oracle, on the same plans and padded factors, carried over
+by `repro_torch.convert`.  On the CPU the wrapper takes the plain version."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.mttkrp import mttkrp_approach1 as jax_mttkrp_approach1
+from repro.core.remap import plan_blocks as jax_plan_blocks
+from repro.kernels.mttkrp_pallas import mttkrp_pallas_call
+from repro.kernels.ref import mttkrp_plan_ref as jax_mttkrp_plan_ref
+from repro.kernels.workspace import _visited_row_mask
+from repro_torch.convert import factors_from_numpy, plan_from_numpy
+from repro_torch.core.coo import SparseTensor
+from repro_torch.core.mttkrp import mttkrp_approach1
+from repro_torch.kernels.mttkrp import (
+    mttkrp_blocked,
+    mttkrp_blocked_plain,
+    pad_factor,
+    rank_padded,
+)
+from repro_torch.kernels.ops import make_planned_mttkrp
+from repro_torch.kernels.ref import mttkrp_plan_ref, mttkrp_ref
+
+RANK = 4
+# float32 sums over the same terms taken in another order (the Pallas
+# kernel's one-hot matmul vs index_add_).
+RTOL = ATOL = 1e-5
+TILES = dict(tile_i=8, tile_j=16, tile_k=4, blk=16)
+
+
+def carried(st, mode):
+    """The reference plan, the same plan in the port, and padded factors
+    (numpy, made from a seed) for its input modes."""
+    ref = jax_plan_blocks(st, mode, **TILES)
+    plan = plan_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}, "cpu")
+    rng = np.random.default_rng(100 + mode)
+    rp = rank_padded(RANK)
+    facs = []
+    for rows, m in zip(ref.in_rows, ref.in_modes):
+        f = np.zeros((rows, rp), np.float32)
+        f[: st.shape[m], :RANK] = rng.standard_normal((st.shape[m], RANK))
+        facs.append(f)
+    return ref, plan, facs
+
+
+def pallas_interpret(ref, facs):
+    nb, blk = ref.nblocks, ref.blk
+    out = mttkrp_pallas_call(
+        jnp.asarray(ref.block_it),
+        [jnp.asarray(t) for t in ref.block_in],
+        jnp.asarray(ref.vals).reshape(nb, blk),
+        jnp.asarray(ref.iloc).reshape(nb, blk),
+        [jnp.asarray(l).reshape(nb, blk) for l in ref.in_locs],
+        [jnp.asarray(f) for f in facs],
+        tile_i=ref.tile_i, in_tiles=ref.in_tiles, blk=blk, out_rows=ref.out_rows,
+        interpret=True,
+    )
+    mask = _visited_row_mask(ref.block_it, ref.tile_i, ref.out_rows)
+    return np.where(mask[:, None] > 0, np.asarray(out), 0.0)
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_plain_matches_pallas_interpret_and_plan_ref(request, fixture):
+    """Every mode of a 3/4/5-mode tensor (n_in = 2, 3, 4)."""
+    st = request.getfixturevalue(fixture)
+    for mode in range(st.nmodes):
+        ref, plan, facs = carried(st, mode)
+        got = mttkrp_blocked_plain(plan, factors_from_numpy(facs, "cpu")).numpy()
+        assert got.shape == (ref.out_rows, rank_padded(RANK))
+        np.testing.assert_allclose(got, pallas_interpret(ref, facs), rtol=RTOL, atol=ATOL)
+        want = np.asarray(jax_mttkrp_plan_ref(ref, [jnp.asarray(f) for f in facs], rank_padded(RANK)))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+        # padded lanes and rows no non-zero reaches stay exactly zero
+        assert not got[:, RANK:].any()
+        assert not got[st.shape[mode]:].any()
+
+
+def test_wrapper_on_cpu_takes_plain_version(tensor4d):
+    """CPU tensors run the plain version and launch nothing."""
+    before = mttkrp_blocked.launches
+    ref, plan, facs = carried(tensor4d, 2)
+    tf = factors_from_numpy(facs, "cpu")
+    torch.testing.assert_close(mttkrp_blocked(plan, tf), mttkrp_blocked_plain(plan, tf), rtol=0, atol=0)
+    torch.testing.assert_close(mttkrp_blocked(plan, tf), mttkrp_plan_ref(plan, tf), rtol=RTOL, atol=ATOL)
+    assert mttkrp_blocked.launches == before == 0
+
+
+def test_plain_chunking_is_exact(tiny_tensor, monkeypatch):
+    """The plain version's block-aligned chunks add up to the unchunked sum."""
+    from repro_torch.kernels import mttkrp as module
+
+    _, plan, facs = carried(tiny_tensor, 0)
+    tf = factors_from_numpy(facs, "cpu")
+    whole = mttkrp_blocked_plain(plan, tf)
+    monkeypatch.setattr(module, "PLAIN_CHUNK", 3 * plan.blk)
+    torch.testing.assert_close(mttkrp_blocked_plain(plan, tf), whole, rtol=RTOL, atol=ATOL)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(tiny_tensor):
+    _, plan, facs = carried(tiny_tensor, 1)
+    tf = factors_from_numpy(facs, "cpu")
+    with pytest.raises(ValueError, match="factors for"):
+        mttkrp_blocked(plan, tf[:1])
+    with pytest.raises(ValueError, match="float32"):
+        mttkrp_blocked(plan, [tf[0].double(), tf[1]])
+    with pytest.raises(ValueError, match="factor 1"):
+        mttkrp_blocked(plan, [tf[0], tf[1][:, :2].contiguous()])
+    with pytest.raises(ValueError, match=r">= \d+"):
+        mttkrp_blocked(plan, [tf[0][:1], tf[1]])
+    with pytest.raises(ValueError, match="contiguous"):
+        mttkrp_blocked(plan, [tf[0], tf[1].t().contiguous().t()])
+    with pytest.raises(ValueError, match="plan.iloc"):
+        mttkrp_blocked(dataclasses.replace(plan, iloc=plan.iloc.long()), tf)
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_planned_mttkrp_matches_raw_stream(request, fixture):
+    """`PlannedMTTKRP` (plan built by the port, true-shape factors in, rank
+    columns out) against gather/index_add_ on the raw COO stream."""
+    st = request.getfixturevalue(fixture)
+    pst = SparseTensor(st.indices, st.values, st.shape)
+    rng = np.random.default_rng(3)
+    facs = factors_from_numpy([rng.standard_normal((s, 5)).astype(np.float32) for s in st.shape], "cpu")
+    idx, val = torch.from_numpy(st.indices), torch.from_numpy(st.values)
+    for mode in range(st.nmodes):
+        op = make_planned_mttkrp(pst, mode, 5, device="cpu")
+        got = op(*(facs[m] for m in op.plan.in_modes))
+        assert got.shape == (op.plan.out_rows, 5)
+        want = mttkrp_ref(idx, val, facs, mode, op.plan.out_rows)
+        torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("rank,rp", [(1, 4), (4, 4), (5, 8), (16, 16)])
+def test_rank_padding(rank, rp):
+    assert rank_padded(rank) == rp
+    f = torch.arange(3.0 * rank).reshape(3, rank)
+    p = pad_factor(f, 8, rp)
+    assert p.shape == (8, rp) and torch.equal(p[:3, :rank], f)
+    assert not p[3:].any() and not p[:, rank:].any()
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor5d"])
+def test_approach1_matches_reference(request, fixture):
+    st = request.getfixturevalue(fixture)
+    rng = np.random.default_rng(7)
+    facs = [rng.standard_normal((s, RANK)).astype(np.float32) for s in st.shape]
+    for mode in range(st.nmodes):
+        want = np.asarray(jax_mttkrp_approach1(
+            jnp.asarray(st.indices), jnp.asarray(st.values), [jnp.asarray(f) for f in facs],
+            mode, st.shape[mode], sorted_by_mode=False))
+        got = mttkrp_approach1(torch.from_numpy(st.indices), torch.from_numpy(st.values),
+                               factors_from_numpy(facs, "cpu"), mode, st.shape[mode])
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
