@@ -6,6 +6,7 @@ machine need not have) with
 
     PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
 import math
 
 import pytest
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch.api import decompose
 from repro_torch.core.coo import frostt_like
+from repro_torch.core.memctrl import CacheEngineConfig, DMAEngineConfig, MemoryControllerConfig
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded
 from repro_torch.kernels.ops import make_planned_cp_als
 
@@ -29,18 +31,32 @@ def cuda():
     return torch.device("cuda")
 
 
+# Default geometry, and small tiles with blocks wider than a CTA's 256
+# threads: many output-tile flushes per CTA and several chunks per block.
+GEOMETRIES = {
+    "default": MemoryControllerConfig(),
+    "small_tiles_wide_blocks": MemoryControllerConfig(
+        cache=CacheEngineConfig(tile_i=8, tile_j=16, tile_k=4), dma=DMAEngineConfig(blk=640)),
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("preset", ["tiny", "4d_small", "5d_small"])
-def test_kernel_matches_plain_version(cuda, preset):
+def test_kernel_matches_plain_version(cuda, preset, geometry):
+    """Kernel vs the plain version evaluated in float64 on the same inputs,
+    relative to each output column's max."""
     st = frostt_like(preset)
-    ws = make_planned_cp_als(st, 16, device=cuda)
+    ws = make_planned_cp_als(st, 16, cfg=GEOMETRIES[geometry], device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
     before = mttkrp_blocked.launches
     for m in range(st.nmodes):
         plan = ws.plan_for(m)
         facs = [torch.randn((r, rank_padded(16)), generator=gen, device=cuda) for r in plan.in_rows]
-        got, want = mttkrp_blocked(plan, facs), mttkrp_blocked_plain(plan, facs)
-        scale = want.abs().amax(0).clamp_min(1e-30)
-        assert float(((got - want).abs().amax(0) / scale).max()) <= TOL
+        got = mttkrp_blocked(plan, facs)
+        want = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
+                                    [f.double() for f in facs])
+        scale = want.abs().amax(0).clamp_min(1e-300)
+        assert float(((got.double() - want).abs().amax(0) / scale).max()) <= TOL
     assert mttkrp_blocked.launches == before + st.nmodes
 
 
