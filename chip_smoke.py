@@ -3,10 +3,11 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, runs CP-ALS at NELL-2's
-published size (12,092 x 9,184 x 28,818, 76,879,419 non-zeros, synthetic
-stand-in with seed 0 and zipf skew 1.1) through `repro_torch.api.decompose`,
-and measures the kernel.  Phases, each printing one JSON line:
+against its plain PyTorch version on the card, runs CP-ALS and Tucker HOOI
+at NELL-2's published size (12,092 x 9,184 x 28,818, 76,879,419 non-zeros,
+synthetic stand-in with seed 0 and zipf skew 1.1) through
+`repro_torch.api.decompose`, and measures the kernels.  Phases, each
+printing one JSON line:
 
   a  device   the card (nvidia-smi name and power limit), CUDA version
   b  build    nvcc build of every kernel, seconds, ptxas report
@@ -14,7 +15,13 @@ and measures the kernel.  Phases, each printing one JSON line:
               every mode of the NELL-2-size tensor; CUDA vs CPU CP-ALS fits
               on a small tensor; kernel, plain and sweep timings
   d  main     decompose(st, 16, format="cp", iters=5, seed=0) with the launch
-              counter reset just before and read just after
+              counters reset just before and read just after
+  e  check    TTMc kernel vs plain version on 3-, 4- and 5-mode presets with
+              mixed core ranks and on every mode of the NELL-2-size tensor at
+              core ranks (16, 16, 16); CUDA vs CPU HOOI fits on a small
+              tensor; kernel, plain, sweep and sweep-part timings
+  f  main     decompose(st, (16, 16, 16), format="tucker", iters=5, seed=0)
+              with the launch counters reset just before and read just after
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -39,6 +46,14 @@ from repro_torch.core.cp_als import fit_value  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
 from repro_torch.kernels.ops import make_planned_cp_als  # noqa: E402
+from repro_torch.kernels.ttm import kron_cols, ttmc_blocked, ttmc_blocked_plain  # noqa: E402
+from repro_torch.tucker.hooi import (  # noqa: E402
+    _core_from_unfolding,
+    _factor_from_unfolding,
+    core_fit_value,
+    init_tucker_factors,
+    make_planned_tucker,
+)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 outside the
 # tensor cores.  Used for the kernel's least possible time (bound_ms).
@@ -46,6 +61,10 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 RANK = 16
+CORE_RANKS = (16, 16, 16)  # Tucker at NELL-2 size: 256 Kronecker columns per row
+# Mixed core ranks on the presets: equal ones would hide a transposed
+# Kronecker digit order.
+PRESET_CORE_RANKS = {"tiny": (3, 5, 2), "4d_small": (5, 4, 6, 3), "5d_small": (3, 4, 2, 5, 3)}
 ITERS = 5
 NELL2_SHAPE = (12_092, 9_184, 28_818)
 NELL2_NNZ = 76_879_419
@@ -63,11 +82,16 @@ TOL_FULL = 1e-4
 # CUDA vs CPU CP-ALS on the small tensor: the same float32 algorithm with
 # sums taken in another order; the ROADMAP's fit bar.
 TOL_FIT = 1e-5
-# Fit may not drop by more than this between iterations (ALS is monotone up
-# to float32 rounding).
+# Fit may not drop by more than this between iterations (ALS and HOOI are
+# monotone up to float32 rounding).
 FIT_DROP = 1e-5
+# ||U^T U - I|| (max entry) of HOOI's factors after phase f: float32 Gram
+# and eigh on unfoldings of up to 28,818 rows.
+ORTHO_TOL = 1e-4
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+# The TTMc plain version takes seconds per call at NELL-2 size.
+TTMC_PLAIN_REPS = 1
 SWEEP_REPS = 3
 
 
@@ -108,15 +132,16 @@ def errors(got: torch.Tensor, exact: torch.Tensor) -> tuple[float, float]:
     return float(diff.max()), float((diff.amax(0) / col).max())
 
 
-def check_kernel(plan, facs, tol: float, what: str) -> dict:
-    """Kernel vs the plain version in float64 (and the plain version in
-    float32 vs the same), on the same inputs."""
-    ker = mttkrp_blocked(plan, facs)
+def check_kernel(kernel, plain, plan, facs, *extra, tol: float, what: str) -> dict:
+    """Kernel vs its plain version in float64 (and the plain version in
+    float32 vs the same), on the same inputs.  Every output column counts,
+    padded lanes included: their exact value is 0."""
+    ker = kernel(plan, facs, *extra)
     torch.cuda.synchronize()
-    exact = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
-                                 [f.double() for f in facs])
+    exact = plain(dataclasses.replace(plan, vals=plan.vals.double()), [f.double() for f in facs], *extra)
     abs_err, rel_err = errors(ker, exact)
-    plain_abs, plain_rel = errors(mttkrp_blocked_plain(plan, facs), exact)
+    del ker
+    plain_abs, plain_rel = errors(plain(plan, facs, *extra), exact)
     check(rel_err <= tol, f"{what}: kernel rel err {rel_err} > {tol}")
     return {"max_abs_err": abs_err, "max_rel_err": rel_err,
             "plain_f32_max_abs_err": plain_abs, "plain_f32_max_rel_err": plain_rel}
@@ -133,8 +158,29 @@ def bound(shape, nnz: int, mode: int, rank: int) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def random_padded(plan, rp: int, gen: torch.Generator) -> list[torch.Tensor]:
-    return [torch.randn((rows, rp), generator=gen, device="cuda") for rows in plan.in_rows]
+def ttmc_bound(shape, nnz: int, mode: int, core_ranks) -> tuple[float, str]:
+    """Least time (ms) for one mode's TTMc on this data: each input read once
+    (the true nnz stream of value + N indices, each input factor's true
+    lanes), the output's true columns written once; flops per non-zero =
+    the multiplies of the Kronecker chain (r_a, r_a*r_b, ...) plus one add
+    per output column."""
+    in_ranks = [r for m, r in enumerate(core_ranks) if m != mode]
+    ncols = kron_cols(in_ranks)
+    nbytes = (nnz * 4 * (1 + len(shape))
+              + sum(s * r for m, (s, r) in enumerate(zip(shape, core_ranks)) if m != mode) * 4
+              + shape[mode] * ncols * 4)
+    flops = nnz * (sum(math.prod(in_ranks[: k + 1]) for k in range(len(in_ranks))) + ncols)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def random_padded(plan, widths, gen: torch.Generator) -> list[torch.Tensor]:
+    return [torch.randn((rows, w), generator=gen, device="cuda") for rows, w in zip(plan.in_rows, widths)]
+
+
+def reset_launches() -> None:
+    mttkrp_blocked.launches = 0
+    ttmc_blocked.launches = 0
 
 
 def main() -> int:
@@ -167,9 +213,10 @@ def main() -> int:
         ws = make_planned_cp_als(st, RANK, device="cuda")
         for m in range(st.nmodes):
             plan = ws.plan_for(m)
-            facs = random_padded(plan, rp, gen)
+            facs = random_padded(plan, [rp] * plan.n_in, gen)
             presets.append({"preset": preset, "mode": m, "n_in": plan.n_in,
-                            **check_kernel(plan, facs, TOL_PRESET, f"{preset} mode {m}")})
+                            **check_kernel(mttkrp_blocked, mttkrp_blocked_plain, plan, facs,
+                                           tol=TOL_PRESET, what=f"{preset} mode {m}")})
         del ws
 
     tiny = frostt_like("tiny")
@@ -189,8 +236,9 @@ def main() -> int:
     modes = []
     for m in range(st.nmodes):
         plan = ws.plan_for(m)
-        facs = random_padded(plan, rp, gen)
-        errs = check_kernel(plan, facs, TOL_FULL, f"NELL-2 mode {m}")
+        facs = random_padded(plan, [rp] * plan.n_in, gen)
+        errs = check_kernel(mttkrp_blocked, mttkrp_blocked_plain, plan, facs,
+                            tol=TOL_FULL, what=f"NELL-2 mode {m}")
         bound_ms, bound_by = bound(st.shape, st.nnz, m, RANK)
         modes.append({
             "mode": m, "nblocks": plan.nblocks, "slots": plan.nblocks * plan.blk,
@@ -210,18 +258,21 @@ def main() -> int:
     sweep_ms = cuda_ms(lambda: ws.sweep(facs, idx, val, norm_x_sq), SWEEP_REPS)
     true = [f[:s, :RANK] for f, s in zip(facs, st.shape)]
     fit_ms = cuda_ms(lambda: fit_value(idx, val, true, lam, norm_x_sq), SWEEP_REPS)
-    del ws, facs, true, idx, val
+    # Nothing of this phase may stay alive (a NELL-2 plan is 1.7 GB): phase
+    # d's peak device memory counts only what decompose holds.
+    del ws, plan, facs, lam, true, idx, val, norm_x_sq, init
     torch.cuda.empty_cache()
     emit({"phase": "c", "presets": presets, "tiny_fit_gap_cuda_cpu": fit_gap,
           "nell2_modes": modes, "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
 
     torch.cuda.reset_peak_memory_stats()
-    mttkrp_blocked.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     state = decompose(st, RANK, format="cp", iters=ITERS, seed=0)
     torch.cuda.synchronize()
     decompose_s = time.perf_counter() - t0
     launches = mttkrp_blocked.launches
+    check(ttmc_blocked.launches == 0, f"CP-ALS launched {ttmc_blocked.launches} TTMc kernels")
     fits = state.fit_history
     check(len(fits) == ITERS and all(math.isfinite(f) for f in fits), f"fits {fits}")
     check(all(b >= a - FIT_DROP for a, b in zip(fits, fits[1:])), f"fit dropped: {fits}")
@@ -234,6 +285,10 @@ def main() -> int:
           "launches": launches, "sweep_ms": sweep_ms, "fit_ms": fit_ms,
           "kernel_ms": [x["ms"] for x in modes], "plain_ms": [x["plain_ms"] for x in modes],
           "bound_ms": [x["bound_ms"] for x in modes]})
+
+    del state
+    torch.cuda.empty_cache()
+    tucker = tucker_phases(st, gen)
 
     emit({"kernels": [{
         "name": "mttkrp_blocked",
@@ -249,11 +304,116 @@ def main() -> int:
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
         "library_ms": None,
-    }]})
+    }, tucker]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def tucker_phases(st, gen: torch.Generator) -> dict:
+    """Phases e and f on the NELL-2-size tensor `st`; returns the TTMc
+    kernel's entry of the `kernels` line."""
+    presets = []
+    for preset, core_ranks in PRESET_CORE_RANKS.items():
+        small = frostt_like(preset)
+        ws = make_planned_tucker(small, core_ranks, device="cuda")
+        for m, op in ws.ops.items():
+            facs = random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen)
+            presets.append({"preset": preset, "mode": m, "in_ranks": list(op.in_ranks),
+                            **check_kernel(ttmc_blocked, ttmc_blocked_plain, op.plan, facs,
+                                           op.in_ranks, tol=TOL_PRESET, what=f"{preset} mode {m}")})
+        del ws
+
+    tiny = frostt_like("tiny")
+    init = init_tucker_factors(tiny.shape, PRESET_CORE_RANKS["tiny"], seed=0, device=torch.device("cuda"))
+    on_gpu = decompose(tiny, PRESET_CORE_RANKS["tiny"], format="tucker", iters=3, init_factors=init,
+                       device="cuda").fit_history
+    on_cpu = decompose(tiny, PRESET_CORE_RANKS["tiny"], format="tucker", iters=3,
+                       init_factors=[f.cpu() for f in init], device="cpu").fit_history
+    fit_gap = max(abs(a - b) for a, b in zip(on_gpu, on_cpu))
+    check(fit_gap <= TOL_FIT, f"tiny HOOI fits, cuda {on_gpu} vs cpu {on_cpu}")
+
+    t0 = time.perf_counter()
+    ws = make_planned_tucker(st, CORE_RANKS, device="cuda")
+    torch.cuda.synchronize()
+    plan_build_s = time.perf_counter() - t0
+    modes = []
+    for m, op in ws.ops.items():
+        plan = op.plan
+        facs = random_padded(plan, [rank_padded(r) for r in op.in_ranks], gen)
+        errs = check_kernel(ttmc_blocked, ttmc_blocked_plain, plan, facs, op.in_ranks,
+                            tol=TOL_FULL, what=f"NELL-2 TTMc mode {m}")
+        bound_ms, bound_by = ttmc_bound(st.shape, st.nnz, m, CORE_RANKS)
+        modes.append({
+            "mode": m, "in_ranks": list(op.in_ranks), "cols": op.out_cols, **errs,
+            "ms": cuda_ms(lambda: ttmc_blocked(plan, facs, op.in_ranks), KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: ttmc_blocked_plain(plan, facs, op.in_ranks), TTMC_PLAIN_REPS),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        del facs
+    # The sweep, and its parts timed apart on the sweep's own operands.
+    norm_x_sq = torch.tensor(float((st.values.astype("float64") ** 2).sum()), device="cuda")
+    facs = ws.pad_factors(init_tucker_factors(st.shape, CORE_RANKS, seed=0, device=torch.device("cuda")))
+    facs, _, _ = ws.sweep(facs, norm_x_sq)
+    sweep_ms = cuda_ms(lambda: ws.sweep(facs, norm_x_sq), SWEEP_REPS)
+    factor_ms, ys = [], []
+    for m, op in ws.ops.items():
+        in_facs = [facs[im][: op.plan.in_rows[n]] for n, im in enumerate(op.plan.in_modes)]
+        ys.append(ttmc_blocked(op.plan, in_facs, op.in_ranks)[: st.shape[m], : op.out_cols])
+        factor_ms.append(cuda_ms(lambda: _factor_from_unfolding(ys[m], CORE_RANKS[m]), SWEEP_REPS))
+    last = st.nmodes - 1
+    u_last = facs[last][: st.shape[last], : CORE_RANKS[last]]
+    core_fit_ms = cuda_ms(lambda: core_fit_value(
+        _core_from_unfolding(ys[last], u_last, last, CORE_RANKS), norm_x_sq), SWEEP_REPS)
+    kernel_ms = sum(x["ms"] for x in modes)
+    del ws, op, plan, facs, in_facs, ys, u_last, norm_x_sq, init
+    torch.cuda.empty_cache()
+    emit({"phase": "e", "presets": presets, "tiny_fit_gap_cuda_cpu": fit_gap,
+          "nell2_core_ranks": list(CORE_RANKS), "nell2_modes": modes, "plan_build_s": plan_build_s,
+          "sweep_ms": sweep_ms, "kernel_ms": kernel_ms, "factor_update_ms": factor_ms,
+          "core_fit_ms": core_fit_ms,
+          "rest_ms": sweep_ms - kernel_ms - sum(factor_ms) - core_fit_ms,
+          "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = decompose(st, CORE_RANKS, format="tucker", iters=ITERS, seed=0)
+    torch.cuda.synchronize()
+    decompose_s = time.perf_counter() - t0
+    launches = ttmc_blocked.launches
+    check(mttkrp_blocked.launches == 0, f"HOOI launched {mttkrp_blocked.launches} MTTKRP kernels")
+    fits = state.fit_history
+    check(len(fits) == ITERS and all(math.isfinite(f) for f in fits), f"HOOI fits {fits}")
+    check(all(b >= a - FIT_DROP for a, b in zip(fits, fits[1:])), f"HOOI fit dropped: {fits}")
+    check(launches == st.nmodes * ITERS, f"{launches} TTMc launches, expected {st.nmodes * ITERS}")
+    check(tuple(state.core.shape) == CORE_RANKS and bool(torch.isfinite(state.core).all()), "core")
+    ortho = max(float((f.T @ f - torch.eye(r, device=f.device)).abs().max())
+                for f, r in zip(state.factors, CORE_RANKS))
+    check(all(tuple(f.shape) == (s, r) for f, s, r in zip(state.factors, st.shape, CORE_RANKS))
+          and ortho <= ORTHO_TOL, f"factor shapes, or orthonormality off by {ortho}")
+    emit({"phase": "f", "shape": list(st.shape), "nnz": st.nnz, "core_ranks": list(CORE_RANKS),
+          "iters": ITERS, "plan_build_s": plan_build_s, "decompose_s": decompose_s,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(), "fits": fits,
+          "factor_orthonormality_err": ortho, "launches": launches, "sweep_ms": sweep_ms,
+          "kernel_ms": [x["ms"] for x in modes], "plain_ms": [x["plain_ms"] for x in modes],
+          "bound_ms": [x["bound_ms"] for x in modes]})
+    return {
+        "name": "ttmc_blocked",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ttmc.cu",
+        "replaces": "src/repro/kernels/ttm_pallas.py:60 _kernel",
+        "launches": launches,
+        "per": f"one sweep: {st.nmodes} launches, one per mode",
+        "max_abs_err": max(x["max_abs_err"] for x in modes),
+        "max_rel_err": max(x["max_rel_err"] for x in modes),
+        "ms": kernel_ms,
+        "plain_ms": sum(x["plain_ms"] for x in modes),
+        "bound_ms": sum(x["bound_ms"] for x in modes),
+        "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
+        "library_ms": None,
+    }
 
 
 if __name__ == "__main__":

@@ -14,8 +14,9 @@ import torch
 from .core.cp_als import CPState
 from .core.remap import BlockPlan
 from .kernels.workspace import _plan_device_arrays
+from .tucker.hooi import TuckerState
 
-__all__ = ["factors_from_numpy", "plan_from_numpy", "cpstate_to_numpy"]
+__all__ = ["factors_from_numpy", "plan_from_numpy", "cpstate_to_numpy", "tuckerstate_to_numpy"]
 
 
 def factors_from_numpy(factors: Sequence[np.ndarray], device: str | torch.device) -> list[torch.Tensor]:
@@ -53,5 +54,14 @@ def cpstate_to_numpy(state: CPState) -> dict:
     return {
         "factors": [f.detach().cpu().numpy() for f in state.factors],
         "lam": state.lam.detach().cpu().numpy(),
+        "fit_history": [float(x) for x in state.fit_history],
+    }
+
+
+def tuckerstate_to_numpy(state: TuckerState) -> dict:
+    """{"factors": [np.ndarray], "core": np.ndarray, "fit_history": [float]}."""
+    return {
+        "factors": [f.detach().cpu().numpy() for f in state.factors],
+        "core": state.core.detach().cpu().numpy(),
         "fit_history": [float(x) for x in state.fit_history],
     }

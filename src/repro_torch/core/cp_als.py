@@ -12,11 +12,11 @@ import dataclasses
 import math
 from typing import Sequence
 
-import numpy as np
 import torch
 
 from ..device import resolve_device
 from .coo import SparseTensor, norm_sq, to_device
+from .loop import check_workspace, given_factors
 
 __all__ = [
     "CPState",
@@ -127,17 +127,7 @@ def _update_mode(mt: torch.Tensor, factors: list, m: int, first: bool):
 def _initial_factors(st: SparseTensor, rank: int, init_factors, seed: int,
                      device: torch.device) -> list[torch.Tensor]:
     if init_factors is not None:
-        if len(init_factors) != st.nmodes:
-            raise ValueError(f"{len(init_factors)} initial factors for a {st.nmodes}-mode tensor")
-        out = []
-        for m, f in enumerate(init_factors):
-            t = f if isinstance(f, torch.Tensor) else torch.tensor(np.asarray(f, np.float32))
-            if tuple(t.shape) != (st.shape[m], rank):
-                raise ValueError(
-                    f"initial factor {m} has shape {tuple(t.shape)}, expected "
-                    f"{(st.shape[m], rank)}")
-            out.append(t.to(device=device, dtype=torch.float32))
-        return out
+        return given_factors(init_factors, [(s, rank) for s in st.shape], device)
     gen = torch.Generator(device=device).manual_seed(seed)
     return [
         torch.randn((s, rank), generator=gen, device=device) / math.sqrt(rank)
@@ -174,14 +164,8 @@ def cp_als(
     factors = _initial_factors(st, rank, init_factors, seed, device)
     if planned is None:
         planned = make_planned_cp_als(st, rank, device=device)
-    elif not isinstance(planned, PlannedCPALS):
-        raise ValueError(f"planned must be a PlannedCPALS, got {type(planned).__name__}")
-    elif planned.shape != st.shape or planned.rank != rank:
-        raise ValueError(
-            f"planned workspace does not match the call: built for shape={planned.shape} "
-            f"rank={planned.rank}, the call has shape={st.shape} rank={rank}")
-    elif planned.device != device:
-        raise ValueError(f"planned workspace lives on {planned.device}, the call asks for {device}")
+    else:
+        check_workspace(planned, PlannedCPALS, {"shape": st.shape, "rank": rank}, device)
     idx, val = to_device(st, device)
     norm_x_sq = torch.tensor(norm_sq(st), dtype=torch.float32, device=device)
     factors, lam, fits = planned.drive(

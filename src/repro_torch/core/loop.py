@@ -1,11 +1,48 @@
-"""Host-side per-iteration bookkeeping shared by the drive loops.
-Counterpart of `finish_iter` in `repro.core.loop`, without the obs events."""
+"""Host-side per-iteration bookkeeping and argument contracts shared by the
+drivers.  Counterpart of `finish_iter` (without the obs events) and
+`check_workspace` in `repro.core.loop`, and of the drivers' shared handling
+of given initial factors."""
 from __future__ import annotations
 
 import math
 import warnings
+from typing import Sequence
 
-__all__ = ["finish_iter"]
+import numpy as np
+import torch
+
+__all__ = ["check_workspace", "finish_iter", "given_factors"]
+
+
+def given_factors(init_factors: Sequence, shapes: Sequence[tuple[int, int]],
+                  device: torch.device) -> list[torch.Tensor]:
+    """The caller's initial factors (arrays or tensors, one per mode) as
+    float32 tensors on `device`; raises unless factor m has shape shapes[m]."""
+    if len(init_factors) != len(shapes):
+        raise ValueError(f"{len(init_factors)} initial factors for a {len(shapes)}-mode tensor")
+    out = []
+    for m, (f, shape) in enumerate(zip(init_factors, shapes)):
+        t = f if isinstance(f, torch.Tensor) else torch.tensor(np.asarray(f, np.float32))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"initial factor {m} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        out.append(t.to(device=device, dtype=torch.float32))
+    return out
+
+
+def check_workspace(planned, cls: type, built_for: dict, device: torch.device) -> None:
+    """Raise unless `planned` is a `cls` whose attributes equal the call's
+    values in `built_for` (e.g. {"shape": ..., "rank": ...}) and whose plans
+    live on `device`."""
+    if not isinstance(planned, cls):
+        raise ValueError(f"planned must be a {cls.__name__}, got {type(planned).__name__}")
+    has = {k: getattr(planned, k) for k in built_for}
+    if has != built_for:
+        def fmt(d):
+            return " ".join(f"{k}={v}" for k, v in d.items())
+        raise ValueError(f"planned workspace does not match the call: built for {fmt(has)}, "
+                         f"the call has {fmt(built_for)}")
+    if planned.device != device:
+        raise ValueError(f"planned workspace lives on {planned.device}, the call asks for {device}")
 
 
 def finish_iter(fits, fit, it: int, tol, verbose: bool, label: str) -> bool:

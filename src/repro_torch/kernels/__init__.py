@@ -1,3 +1,3 @@
 """Kernels of the port (mirrors `repro.kernels`): the hand-written Hopper
-MTTKRP kernel, its build, its plain PyTorch version, and the planned
-workspaces that drive it."""
+MTTKRP and TTMc kernels, their build, their plain PyTorch versions, and the
+planned workspaces that drive them."""

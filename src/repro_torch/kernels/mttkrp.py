@@ -19,7 +19,7 @@ import torch
 
 from ..core.remap import BlockPlan
 
-__all__ = ["mttkrp_blocked", "mttkrp_blocked_plain", "pad_factor", "rank_padded"]
+__all__ = ["check_plan_args", "mttkrp_blocked", "mttkrp_blocked_plain", "pad_factor", "rank_padded"]
 
 #: Slots per step of the plain version (bounds its gather temporaries).
 PLAIN_CHUNK = 1 << 24
@@ -71,9 +71,14 @@ def mttkrp_blocked_plain(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -
     return out
 
 
-def _check(plan: BlockPlan, factors_pad: Sequence[torch.Tensor], dtype: torch.dtype) -> None:
-    """Raise on anything the kernel does not take (values and factors of
-    `dtype`, which is float32 for the kernel)."""
+def check_plan_args(plan: BlockPlan, factors_pad: Sequence[torch.Tensor], dtype: torch.dtype,
+                    min_cols: Sequence[int]) -> None:
+    """Raise on a plan stream or padded factors that the blocked kernels do
+    not take: 2-4 input modes; every stream array contiguous, on the plan's
+    device, of the layout's dtype and shape (values of `dtype`, float32 for
+    the kernels); one 2-D contiguous `dtype` factor per input mode with at
+    least plan.in_rows[n] rows and min_cols[n] columns.  Shared by every
+    kernel wrapper on the BlockPlan layout, so all reject the same plans."""
     n_in = plan.n_in
     if not 2 <= n_in <= 4:
         raise ValueError(f"the kernel takes 2-4 input modes (3-5-mode tensors), got {n_in}")
@@ -93,16 +98,25 @@ def _check(plan: BlockPlan, factors_pad: Sequence[torch.Tensor], dtype: torch.dt
                 f"plan.{name}: expected a contiguous {want} tensor of shape {shape} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
                 f"{'' if t.is_contiguous() else ' (not contiguous)'}")
-    ld = factors_pad[0].shape[1] if factors_pad[0].dim() == 2 else -1
-    for n, f in enumerate(factors_pad):
-        if (f.device != dev or f.dtype != dtype or f.dim() != 2
-                or f.shape[1] != ld or f.shape[0] < plan.in_rows[n] or not f.is_contiguous()):
+    for n, (f, cols) in enumerate(zip(factors_pad, min_cols)):
+        cols = max(cols, 1)
+        if (f.device != dev or f.dtype != dtype or f.dim() != 2 or f.shape[0] < plan.in_rows[n]
+                or f.shape[1] < cols or not f.is_contiguous()):
             raise ValueError(
-                f"factor {n}: expected a contiguous {dtype} (>= {plan.in_rows[n]}, {ld}) "
+                f"factor {n}: expected a contiguous {dtype} (>= {plan.in_rows[n]}, >= {cols}) "
                 f"matrix on {dev}, got {f.dtype} {tuple(f.shape)} on {f.device}"
                 f"{'' if f.is_contiguous() else ' (not contiguous)'}")
-    if ld < 1:
-        raise ValueError("factors must have at least one column")
+
+
+def _check(plan: BlockPlan, factors_pad: Sequence[torch.Tensor], dtype: torch.dtype) -> None:
+    """`check_plan_args`, and one width for every factor: the kernel reads
+    every factor and the output with one row stride."""
+    ld = factors_pad[0].shape[1] if factors_pad and factors_pad[0].dim() == 2 else 1
+    check_plan_args(plan, factors_pad, dtype, (ld,) * len(factors_pad))
+    for n, f in enumerate(factors_pad):
+        if f.shape[1] != ld:
+            raise ValueError(f"factor {n}: {f.shape[1]} columns, factor 0 has {ld}; "
+                             f"every factor takes one width")
 
 
 def _library() -> ctypes.CDLL:

@@ -1,14 +1,17 @@
-"""Planned MTTKRP and the planned CP-ALS workspace.
+"""Planned MTTKRP and TTMc, and the planned CP-ALS workspace.
 
-Counterpart of the MTTKRP part of `repro.kernels.ops`: `PlannedMTTKRP` holds
-one output mode's device-resident BlockPlan and runs the kernel on it;
-`PlannedCPALS` holds one per mode, built once and reused by every ALS
-iteration (the plan/remap cost is amortized over the decomposition).  No
-plan cache and no sharding yet.
+Counterpart of the MTTKRP and TTMc parts of `repro.kernels.ops`:
+`PlannedMTTKRP` / `PlannedTTMC` hold one output mode's device-resident
+BlockPlan and run their kernel on it (for one tensor, mode and config both
+get the same plan: the kernel adapts to the layout); `PlannedCPALS` holds
+one per mode, built once and reused by every ALS iteration (the plan/remap
+cost is amortized over the decomposition).  No plan cache, no PMS auto-tune
+and no sharding yet.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import torch
 
@@ -18,9 +21,17 @@ from ..core.memctrl import MemoryControllerConfig
 from ..core.remap import BlockPlan, plan_blocks
 from ..device import resolve_device
 from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
+from .ttm import kron_cols, ttmc_blocked
 from .workspace import PlannedWorkspace
 
-__all__ = ["PlannedMTTKRP", "make_planned_mttkrp", "PlannedCPALS", "make_planned_cp_als"]
+__all__ = [
+    "PlannedMTTKRP",
+    "make_planned_mttkrp",
+    "PlannedTTMC",
+    "make_planned_ttmc",
+    "PlannedCPALS",
+    "make_planned_cp_als",
+]
 
 
 @dataclasses.dataclass
@@ -43,6 +54,19 @@ class PlannedMTTKRP:
         return mttkrp_blocked(p, pads)[:, : self.rank]
 
 
+def _plan(st: SparseTensor, mode: int, cfg: MemoryControllerConfig,
+          device: str | torch.device | None) -> BlockPlan:
+    """One mode's memory layout (the Tensor Remapper) on `device`."""
+    return plan_blocks(
+        st,
+        mode,
+        tile_i=cfg.cache.tile_i,
+        blk=cfg.dma.blk,
+        in_tiles=cfg.cache.input_tiles(st.nmodes - 1),
+        device=resolve_device(device),
+    )
+
+
 def make_planned_mttkrp(
     st: SparseTensor,
     mode: int,
@@ -53,15 +77,56 @@ def make_planned_mttkrp(
 ) -> PlannedMTTKRP:
     """Build one mode's memory layout (the Tensor Remapper) on `device`."""
     cfg = cfg or MemoryControllerConfig()
-    plan = plan_blocks(
-        st,
-        mode,
-        tile_i=cfg.cache.tile_i,
-        blk=cfg.dma.blk,
-        in_tiles=cfg.cache.input_tiles(st.nmodes - 1),
-        device=resolve_device(device),
-    )
-    return PlannedMTTKRP(plan=plan, rank=rank, cfg=cfg)
+    return PlannedMTTKRP(plan=_plan(st, mode, cfg, device), rank=rank, cfg=cfg)
+
+
+@dataclasses.dataclass
+class PlannedTTMC:
+    """One (tensor, output mode) for the TTM-chain kernel: the same
+    device-resident BlockPlan as MTTKRP's, and the input-factor ranks
+    `in_ranks` in plan.in_modes order; the output has prod(in_ranks) true
+    columns."""
+
+    plan: BlockPlan
+    in_ranks: tuple[int, ...]
+    cfg: MemoryControllerConfig = dataclasses.field(default_factory=MemoryControllerConfig)
+
+    @property
+    def out_cols(self) -> int:
+        return kron_cols(self.in_ranks)
+
+    def __call__(self, *in_factors: torch.Tensor) -> torch.Tensor:
+        """True-shape factors of the N-1 input modes (plan.in_modes order).
+        Returns (plan.out_rows, prod(in_ranks))."""
+        p = self.plan
+        if len(in_factors) != p.n_in:
+            raise ValueError(f"{len(in_factors)} factors for {p.n_in} input modes")
+        pads = [pad_factor(f, rows, rank_padded(r))
+                for f, rows, r in zip(in_factors, p.in_rows, self.in_ranks)]
+        return ttmc_blocked(p, pads, self.in_ranks)[:, : self.out_cols]
+
+
+def make_planned_ttmc(
+    st: SparseTensor,
+    mode: int,
+    core_ranks: Sequence[int],
+    *,
+    cfg: MemoryControllerConfig | None = None,
+    device: str | torch.device | None = None,
+) -> PlannedTTMC:
+    """Build one output mode's layout for the TTMc kernel on `device`.
+
+    `core_ranks` is the FULL N-tuple of Tucker core ranks; the op's
+    `in_ranks` are taken from it in plan.in_modes order.  The plan is the
+    one `make_planned_mttkrp` builds for the same (tensor, mode, cfg)."""
+    core_ranks = tuple(int(r) for r in core_ranks)
+    if len(core_ranks) != st.nmodes:
+        raise ValueError(
+            f"core_ranks has {len(core_ranks)} entries for a {st.nmodes}-mode tensor "
+            f"(pass the full N-tuple)")
+    cfg = cfg or MemoryControllerConfig()
+    plan = _plan(st, mode, cfg, device)
+    return PlannedTTMC(plan=plan, in_ranks=tuple(core_ranks[m] for m in plan.in_modes), cfg=cfg)
 
 
 @dataclasses.dataclass

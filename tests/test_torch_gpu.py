@@ -1,5 +1,6 @@
-"""Port tests that need the card: the CUDA MTTKRP kernel against its plain
-version, and the CP-ALS path on CUDA against the CPU path.  Marked `gpu`;
+"""Port tests that need the card: the CUDA MTTKRP and TTMc kernels against
+their plain versions, and the CP-ALS and Tucker HOOI paths on CUDA against
+the CPU path.  Marked `gpu`;
 they skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
@@ -17,6 +18,8 @@ from repro_torch.core.coo import frostt_like
 from repro_torch.core.memctrl import CacheEngineConfig, DMAEngineConfig, MemoryControllerConfig
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded
 from repro_torch.kernels.ops import make_planned_cp_als
+from repro_torch.kernels.ttm import ttmc_blocked, ttmc_blocked_plain
+from repro_torch.tucker import init_tucker_factors, make_planned_tucker
 
 pytestmark = pytest.mark.gpu
 
@@ -67,3 +70,46 @@ def test_cuda_fits_match_cpu(cuda):
     a = decompose(st, 8, iters=3, init_factors=init, device=cuda).fit_history
     b = decompose(st, 8, iters=3, init_factors=[f.cpu() for f in init], device="cpu").fit_history
     assert max(abs(x - y) for x, y in zip(a, b)) <= TOL
+
+
+# Mixed core ranks on every preset, and outputs wider than one 64-column
+# slice of the kernel's grid (72, 120 and 256 columns on some modes).
+TUCKER_RANKS = {
+    "tiny": [(3, 5, 2), (16, 16, 16)],
+    "4d_small": [(5, 4, 6, 3)],
+    "5d_small": [(3, 4, 2, 5, 3)],
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("preset,core_ranks",
+                         [(p, r) for p, rs in TUCKER_RANKS.items() for r in rs])
+def test_ttmc_kernel_matches_plain_version(cuda, preset, core_ranks, geometry):
+    """TTMc kernel vs the plain version evaluated in float64 on the same
+    inputs, relative to each output column's max; padded lanes exactly 0."""
+    st = frostt_like(preset)
+    ws = make_planned_tucker(st, core_ranks, cfg=GEOMETRIES[geometry], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = ttmc_blocked.launches
+    for m in range(st.nmodes):
+        op = ws.ops[m]
+        facs = [torch.randn((rows, rank_padded(r)), generator=gen, device=cuda)
+                for rows, r in zip(op.plan.in_rows, op.in_ranks)]
+        got = ttmc_blocked(op.plan, facs, op.in_ranks)
+        want = ttmc_blocked_plain(dataclasses.replace(op.plan, vals=op.plan.vals.double()),
+                                  [f.double() for f in facs], op.in_ranks)
+        assert got.shape == want.shape
+        assert not got[:, op.out_cols:].any()
+        scale = want.abs().amax(0)[: op.out_cols].clamp_min(1e-300)
+        err = (got.double() - want).abs().amax(0)[: op.out_cols] / scale
+        assert float(err.max()) <= TOL
+    assert ttmc_blocked.launches == before + st.nmodes
+
+
+def test_cuda_tucker_fits_match_cpu(cuda):
+    st = frostt_like("tiny")
+    init = init_tucker_factors(st.shape, (3, 5, 2), seed=1, device=cuda)
+    a = decompose(st, (3, 5, 2), format="tucker", iters=3, init_factors=init, device=cuda)
+    b = decompose(st, (3, 5, 2), format="tucker", iters=3, init_factors=[f.cpu() for f in init],
+                  device="cpu")
+    assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
