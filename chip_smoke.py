@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, runs CP-ALS and Tucker HOOI
-at NELL-2's published size (12,092 x 9,184 x 28,818, 76,879,419 non-zeros,
+against its plain PyTorch version on the card, runs CP-ALS, Tucker HOOI and
+TT-ALS at NELL-2's published size (12,092 x 9,184 x 28,818, 76,879,419 non-zeros,
 synthetic stand-in with seed 0 and zipf skew 1.1) through
 `repro_torch.api.decompose`, and measures the kernels.  Phases, each
 printing one JSON line:
@@ -22,6 +22,13 @@ printing one JSON line:
               tensor; kernel, plain, sweep and sweep-part timings
   f  main     decompose(st, (16, 16, 16), format="tucker", iters=5, seed=0)
               with the launch counters reset just before and read just after
+  g  check    TT-core kernel vs plain version on 3-, 4- and 5-mode presets
+              with mixed TT ranks and on every mode of the NELL-2-size tensor
+              at TT ranks (16, 16); CUDA vs CPU TT-ALS fits on a small
+              tensor; kernel, plain, sweep and sweep-part timings
+  h  main     decompose(st, (16, 16), format="tt", iters=5, init="random",
+              seed=0) with the launch counters reset just before and read
+              just after
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -45,8 +52,20 @@ from repro_torch.core.coo import frostt_like, synthetic_tensor  # noqa: E402
 from repro_torch.core.cp_als import fit_value  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
-from repro_torch.kernels.ops import make_planned_cp_als  # noqa: E402
+from repro_torch.kernels.ops import _tt_bond_pairs, make_planned_cp_als  # noqa: E402
+from repro_torch.kernels.tt import ttcore_blocked, ttcore_blocked_plain  # noqa: E402
 from repro_torch.kernels.ttm import kron_cols, ttmc_blocked, ttmc_blocked_plain  # noqa: E402
+from repro_torch.tt.als import (  # noqa: E402
+    _fit_from,
+    _p_next,
+    _q_suffix,
+    _solve_core,
+    core_to_matrix,
+    init_tt_cores,
+    make_planned_tt,
+    matrix_to_core,
+    tt_inner,
+)
 from repro_torch.tucker.hooi import (  # noqa: E402
     _core_from_unfolding,
     _factor_from_unfolding,
@@ -88,6 +107,9 @@ FIT_DROP = 1e-5
 # ||U^T U - I|| (max entry) of HOOI's factors after phase f: float32 Gram
 # and eigh on unfoldings of up to 28,818 rows.
 ORTHO_TOL = 1e-4
+TT_RANKS = (16, 16)  # TT at NELL-2 size: W_1 is 9,184 x 256, mode 1's output 256 columns
+# Mixed TT ranks on the presets: bonds that change at every chain step.
+PRESET_TT_RANKS = {"tiny": (3, 5), "4d_small": (4, 3, 5), "5d_small": (2, 4, 3, 2)}
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 # The TTMc plain version takes seconds per call at NELL-2 size.
@@ -174,6 +196,26 @@ def ttmc_bound(shape, nnz: int, mode: int, core_ranks) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def ttcore_bound(shape, nnz: int, mode: int, tt_ranks) -> tuple[float, str]:
+    """Least time (ms) for one mode's TT-core update on this data: each
+    input read once (the true nnz stream of value + N indices, each input
+    interface matrix's true lanes), the output's true columns written once;
+    flops per non-zero as the kernel does them: a multiply-add per matrix
+    element of each chain step after a chain's first (the first is the
+    gathered row itself), rl_m multiplies to fold the value into the left
+    vector, and a multiply and an add per output column."""
+    pairs = _tt_bond_pairs(tt_ranks, len(shape))
+    rl_m, rr_m = pairs[mode]
+    left, right = pairs[:mode], pairs[mode + 1:]
+    chain = sum(2 * a * b for a, b in left[1:]) + sum(2 * a * b for a, b in right[:-1])
+    nbytes = (nnz * 4 * (1 + len(shape))
+              + sum(s * a * b for m, (s, (a, b)) in enumerate(zip(shape, pairs)) if m != mode) * 4
+              + shape[mode] * rl_m * rr_m * 4)
+    flops = nnz * (chain + rl_m + 2 * rl_m * rr_m)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def random_padded(plan, widths, gen: torch.Generator) -> list[torch.Tensor]:
     return [torch.randn((rows, w), generator=gen, device="cuda") for rows, w in zip(plan.in_rows, widths)]
 
@@ -181,6 +223,7 @@ def random_padded(plan, widths, gen: torch.Generator) -> list[torch.Tensor]:
 def reset_launches() -> None:
     mttkrp_blocked.launches = 0
     ttmc_blocked.launches = 0
+    ttcore_blocked.launches = 0
 
 
 def main() -> int:
@@ -272,7 +315,8 @@ def main() -> int:
     torch.cuda.synchronize()
     decompose_s = time.perf_counter() - t0
     launches = mttkrp_blocked.launches
-    check(ttmc_blocked.launches == 0, f"CP-ALS launched {ttmc_blocked.launches} TTMc kernels")
+    check(ttmc_blocked.launches == 0 and ttcore_blocked.launches == 0,
+          f"CP-ALS launched {ttmc_blocked.launches} TTMc, {ttcore_blocked.launches} TT-core kernels")
     fits = state.fit_history
     check(len(fits) == ITERS and all(math.isfinite(f) for f in fits), f"fits {fits}")
     check(all(b >= a - FIT_DROP for a, b in zip(fits, fits[1:])), f"fit dropped: {fits}")
@@ -289,6 +333,8 @@ def main() -> int:
     del state
     torch.cuda.empty_cache()
     tucker = tucker_phases(st, gen)
+    torch.cuda.empty_cache()
+    tt = tt_phases(st, gen)
 
     emit({"kernels": [{
         "name": "mttkrp_blocked",
@@ -304,7 +350,7 @@ def main() -> int:
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
         "library_ms": None,
-    }, tucker]})
+    }, tucker, tt]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
@@ -383,7 +429,8 @@ def tucker_phases(st, gen: torch.Generator) -> dict:
     torch.cuda.synchronize()
     decompose_s = time.perf_counter() - t0
     launches = ttmc_blocked.launches
-    check(mttkrp_blocked.launches == 0, f"HOOI launched {mttkrp_blocked.launches} MTTKRP kernels")
+    check(mttkrp_blocked.launches == 0 and ttcore_blocked.launches == 0,
+          f"HOOI launched {mttkrp_blocked.launches} MTTKRP, {ttcore_blocked.launches} TT-core kernels")
     fits = state.fit_history
     check(len(fits) == ITERS and all(math.isfinite(f) for f in fits), f"HOOI fits {fits}")
     check(all(b >= a - FIT_DROP for a, b in zip(fits, fits[1:])), f"HOOI fit dropped: {fits}")
@@ -404,6 +451,126 @@ def tucker_phases(st, gen: torch.Generator) -> dict:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ttmc.cu",
         "replaces": "src/repro/kernels/ttm_pallas.py:60 _kernel",
+        "launches": launches,
+        "per": f"one sweep: {st.nmodes} launches, one per mode",
+        "max_abs_err": max(x["max_abs_err"] for x in modes),
+        "max_rel_err": max(x["max_rel_err"] for x in modes),
+        "ms": kernel_ms,
+        "plain_ms": sum(x["plain_ms"] for x in modes),
+        "bound_ms": sum(x["bound_ms"] for x in modes),
+        "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
+        "library_ms": None,
+    }
+
+
+def tt_phases(st, gen: torch.Generator) -> dict:
+    """Phases g and h on the NELL-2-size tensor `st`; returns the TT-core
+    kernel's entry of the `kernels` line."""
+    presets = []
+    for preset, tt_ranks in PRESET_TT_RANKS.items():
+        small = frostt_like(preset)
+        ws = make_planned_tt(small, tt_ranks, device="cuda")
+        for m, op in ws.ops.items():
+            mats = random_padded(op.plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen)
+            presets.append({"preset": preset, "mode": m, "in_rank_pairs": list(op.in_rank_pairs),
+                            **check_kernel(ttcore_blocked, ttcore_blocked_plain, op.plan, mats,
+                                           op.in_rank_pairs, op.n_left, tol=TOL_PRESET,
+                                           what=f"{preset} TT mode {m}")})
+        del ws
+
+    tiny = frostt_like("tiny")
+    tiny_ranks = PRESET_TT_RANKS["tiny"]
+    init = init_tt_cores(tiny.shape, tiny_ranks, seed=0, device=torch.device("cuda"))
+    on_gpu = decompose(tiny, tiny_ranks, format="tt", iters=3, init_factors=init,
+                       device="cuda").fit_history
+    on_cpu = decompose(tiny, tiny_ranks, format="tt", iters=3, init_factors=[c.cpu() for c in init],
+                       device="cpu").fit_history
+    fit_gap = max(abs(a - b) for a, b in zip(on_gpu, on_cpu))
+    check(fit_gap <= TOL_FIT, f"tiny TT-ALS fits, cuda {on_gpu} vs cpu {on_cpu}")
+
+    t0 = time.perf_counter()
+    ws = make_planned_tt(st, TT_RANKS, device="cuda")
+    torch.cuda.synchronize()
+    plan_build_s = time.perf_counter() - t0
+    modes = []
+    for m, op in ws.ops.items():
+        plan = op.plan
+        mats = random_padded(plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen)
+        errs = check_kernel(ttcore_blocked, ttcore_blocked_plain, plan, mats, op.in_rank_pairs,
+                            op.n_left, tol=TOL_FULL, what=f"NELL-2 TT-core mode {m}")
+        bound_ms, bound_by = ttcore_bound(st.shape, st.nnz, m, TT_RANKS)
+        modes.append({
+            "mode": m, "in_rank_pairs": list(op.in_rank_pairs), "cols": op.out_cols, **errs,
+            "ms": cuda_ms(lambda: ttcore_blocked(plan, mats, op.in_rank_pairs, op.n_left),
+                          KERNEL_REPS),
+            "plain_ms": cuda_ms(lambda: ttcore_blocked_plain(plan, mats, op.in_rank_pairs, op.n_left),
+                                TTMC_PLAIN_REPS),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        del mats
+    # The sweep, and its parts timed apart on the sweep's own operands.
+    idx = torch.from_numpy(st.indices).cuda()
+    val = torch.from_numpy(st.values).cuda()
+    norm_x_sq = torch.tensor(float((st.values.astype("float64") ** 2).sum()), device="cuda")
+    facs = ws.pad_factors([core_to_matrix(c) for c in
+                           init_tt_cores(st.shape, TT_RANKS, seed=0, device=torch.device("cuda"))])
+    facs, _, _ = ws.sweep(facs, idx, val, norm_x_sq)
+    sweep_ms = cuda_ms(lambda: ws.sweep(facs, idx, val, norm_x_sq), SWEEP_REPS)
+    pairs, lr = ws.bond_pairs, ws.lane_ranks
+    cores = [matrix_to_core(f[:s, :w], *pr) for f, s, w, pr in zip(facs, st.shape, lr, pairs)]
+    bs = []
+    for m, op in ws.ops.items():
+        in_mats = [facs[im][: op.plan.in_rows[n]] for n, im in enumerate(op.plan.in_modes)]
+        bs.append(ttcore_blocked(op.plan, in_mats, op.in_rank_pairs, op.n_left)[: st.shape[m], : lr[m]])
+
+    def solves_and_grams():
+        qs = _q_suffix(cores)
+        p = torch.ones((1, 1), device="cuda")
+        for m in range(st.nmodes):
+            _solve_core(torch.kron(p, qs[m]), bs[m])
+            p = _p_next(p, cores[m])
+        return p
+
+    solve_gram_ms = cuda_ms(solves_and_grams, SWEEP_REPS)
+    p_last = solves_and_grams()
+    fit_ms = cuda_ms(lambda: _fit_from(norm_x_sq, p_last[0, 0], tt_inner(idx, val, cores)), SWEEP_REPS)
+    kernel_ms = sum(x["ms"] for x in modes)
+    del ws, op, plan, facs, in_mats, bs, cores, p_last, idx, val, norm_x_sq, init
+    torch.cuda.empty_cache()
+    emit({"phase": "g", "presets": presets, "tiny_fit_gap_cuda_cpu": fit_gap,
+          "nell2_tt_ranks": list(TT_RANKS), "nell2_modes": modes, "plan_build_s": plan_build_s,
+          "sweep_ms": sweep_ms, "kernel_ms": kernel_ms, "solve_gram_ms": solve_gram_ms,
+          "fit_ms": fit_ms, "rest_ms": sweep_ms - kernel_ms - solve_gram_ms - fit_ms,
+          "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    state = decompose(st, TT_RANKS, format="tt", iters=ITERS, init="random", seed=0)
+    torch.cuda.synchronize()
+    decompose_s = time.perf_counter() - t0
+    launches = ttcore_blocked.launches
+    check(mttkrp_blocked.launches == 0 and ttmc_blocked.launches == 0,
+          f"TT-ALS launched {mttkrp_blocked.launches} MTTKRP, {ttmc_blocked.launches} TTMc kernels")
+    fits = state.fit_history
+    check(len(fits) == ITERS and all(math.isfinite(f) for f in fits), f"TT-ALS fits {fits}")
+    check(fits[-1] > fits[0], f"TT-ALS fit did not rise: {fits}")
+    check(launches == st.nmodes * ITERS, f"{launches} TT-core launches, expected {st.nmodes * ITERS}")
+    want = [(a, s, b) for s, (a, b) in zip(st.shape, _tt_bond_pairs(TT_RANKS, st.nmodes))]
+    check([tuple(c.shape) for c in state.cores] == want
+          and all(bool(torch.isfinite(c).all()) for c in state.cores), "TT core shapes or values")
+    emit({"phase": "h", "shape": list(st.shape), "nnz": st.nnz, "tt_ranks": list(TT_RANKS),
+          "iters": ITERS, "init": "random", "plan_build_s": plan_build_s,
+          "decompose_s": decompose_s, "peak_device_bytes": torch.cuda.max_memory_allocated(),
+          "fits": fits, "max_fit_drop": max(a - b for a, b in zip(fits, fits[1:])),
+          "launches": launches, "sweep_ms": sweep_ms, "kernel_ms": [x["ms"] for x in modes],
+          "solve_gram_ms": solve_gram_ms, "fit_ms": fit_ms,
+          "plain_ms": [x["plain_ms"] for x in modes], "bound_ms": [x["bound_ms"] for x in modes]})
+    return {
+        "name": "ttcore_blocked",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ttcore.cu",
+        "replaces": "src/repro/kernels/tt_pallas.py:72 _kernel",
         "launches": launches,
         "per": f"one sweep: {st.nmodes} launches, one per mode",
         "max_abs_err": max(x["max_abs_err"] for x in modes),

@@ -3,10 +3,8 @@
     from repro_torch.api import decompose
     cp = decompose(st, rank=16)                        # CP-ALS on the CUDA MTTKRP kernel
     tk = decompose(st, (16, 16, 16), format="tucker")  # HOOI on the CUDA TTMc kernel
+    tt = decompose(st, (16, 16), format="tt")          # TT-ALS on the CUDA TT-core kernel
     cp = decompose(st, 4, device="cpu")                # the plain PyTorch path
-
-`format="cp"` and `format="tucker"` are ported; tensor-train is a later
-slice of the port (ROADMAP.md, queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -16,14 +14,12 @@ import torch
 
 from .core.coo import SparseTensor
 from .core.cp_als import CPState, cp_als
+from .tt.als import TTState, tt_als
 from .tucker.hooi import TuckerState, tucker_hooi
 
 __all__ = ["decompose"]
 
 _FORMATS = ("cp", "tucker", "tt")
-_NOT_PORTED = {
-    "tt": "ROADMAP.md queue 1 item 7 (TT-ALS)",
-}
 
 
 def decompose(
@@ -35,38 +31,45 @@ def decompose(
     seed: int = 0,
     tol: float | None = None,
     init_factors: Sequence | None = None,
+    init: str | None = None,
     planned=None,
     device: str | torch.device | None = None,
     verbose: bool = False,
-) -> CPState | TuckerState:
+) -> CPState | TuckerState | TTState:
     """Decompose a sparse tensor on the planned memory-controller kernels.
 
     Args:
       st: host-side COO tensor (>= 3 modes, at most 5).
-      rank: the CP rank (int), or the Tucker core ranks (N-tuple; an int
-        broadcasts to every mode).
-      format: 'cp' (CP-ALS) or 'tucker' (HOOI).  'tt' raises
-        NotImplementedError until its slice is ported.
+      rank: the CP rank (int); the Tucker core ranks (N-tuple; an int
+        broadcasts to every mode); or the N-1 interior TT ranks (an int
+        broadcasts to every bond).
+      format: 'cp' (CP-ALS), 'tucker' (HOOI) or 'tt' (TT-ALS).
       iters / seed / tol / verbose: iteration count, init seed, host-side
         fit-change early exit, per-iteration fit printing.
       init_factors: initial factors, one (I_m, R_m) array per mode (Tucker's
-        orthonormal); without them a torch generator seeded with `seed`
-        draws them (not the reference's numbers — see `cp_als` and
-        `tucker_hooi`).
-      planned: a prebuilt `PlannedCPALS` or `PlannedTucker` whose plans are
-        reused.
+        orthonormal), or for TT one (rl_m, I_m, rr_m) core per mode; without
+        them a torch generator seeded with `seed` draws them (not the
+        reference's numbers — see `cp_als`, `tucker_hooi` and `tt_als`),
+        except TT's SVD init.
+      init: TT only: 'auto' (the default), 'svd' or 'random' (see `tt_als`).
+      planned: a prebuilt `PlannedCPALS`, `PlannedTucker` or `PlannedTT`
+        whose plans are reused.
       device: CUDA unless given; raises when no GPU is present and no device
         was given.
 
     Returns:
-      `CPState(factors, lam, fit_history)` or
-      `TuckerState(factors, core, fit_history)`.
+      `CPState(factors, lam, fit_history)`,
+      `TuckerState(factors, core, fit_history)` or
+      `TTState(cores, fit_history)`.
     """
     if format not in _FORMATS:
         raise ValueError(f"unknown format {format!r}: expected 'cp', 'tucker' or 'tt'")
-    if format in _NOT_PORTED:
-        raise NotImplementedError(
-            f"format={format!r} is not ported to PyTorch yet: see {_NOT_PORTED[format]}")
+    if init is not None and format != "tt":
+        raise ValueError(f"init= is taken by format='tt' only, not format={format!r}")
+    if format == "tt":
+        ranks = (rank,) * (st.nmodes - 1) if isinstance(rank, int) else tuple(int(r) for r in rank)
+        return tt_als(st, ranks, iters=iters, tol=tol, init=init or "auto", init_cores=init_factors,
+                      seed=seed, device=device, planned=planned, verbose=verbose)
     if format == "tucker":
         ranks = (rank,) * st.nmodes if isinstance(rank, int) else tuple(int(r) for r in rank)
         return tucker_hooi(st, ranks, iters=iters, tol=tol, init_factors=init_factors,

@@ -14,14 +14,24 @@ import torch
 from .core.cp_als import CPState
 from .core.remap import BlockPlan
 from .kernels.workspace import _plan_device_arrays
+from .tt.als import TTState
 from .tucker.hooi import TuckerState
 
-__all__ = ["factors_from_numpy", "plan_from_numpy", "cpstate_to_numpy", "tuckerstate_to_numpy"]
+__all__ = ["factors_from_numpy", "cores_from_numpy", "plan_from_numpy", "cpstate_to_numpy",
+           "tuckerstate_to_numpy", "ttstate_to_numpy"]
 
 
 def factors_from_numpy(factors: Sequence[np.ndarray], device: str | torch.device) -> list[torch.Tensor]:
     """Factor matrices as float32 tensors on `device` (copies)."""
     return [torch.tensor(np.asarray(f, np.float32), device=device) for f in factors]
+
+
+def cores_from_numpy(cores: Sequence[np.ndarray], device: str | torch.device) -> list[torch.Tensor]:
+    """TT cores (rl, I, rr) as float32 tensors on `device` (copies)."""
+    for k, c in enumerate(cores):
+        if np.ndim(c) != 3:
+            raise ValueError(f"core {k} has shape {np.shape(c)}; a TT core is (rl, I, rr)")
+    return factors_from_numpy(cores, device)
 
 
 def plan_from_numpy(fields: dict, device: str | torch.device) -> BlockPlan:
@@ -63,5 +73,13 @@ def tuckerstate_to_numpy(state: TuckerState) -> dict:
     return {
         "factors": [f.detach().cpu().numpy() for f in state.factors],
         "core": state.core.detach().cpu().numpy(),
+        "fit_history": [float(x) for x in state.fit_history],
+    }
+
+
+def ttstate_to_numpy(state: TTState) -> dict:
+    """{"cores": [np.ndarray], "fit_history": [float]}."""
+    return {
+        "cores": [c.detach().cpu().numpy() for c in state.cores],
         "fit_history": [float(x) for x in state.fit_history],
     }

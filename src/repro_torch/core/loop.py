@@ -14,17 +14,18 @@ import torch
 __all__ = ["check_workspace", "finish_iter", "given_factors"]
 
 
-def given_factors(init_factors: Sequence, shapes: Sequence[tuple[int, int]],
-                  device: torch.device) -> list[torch.Tensor]:
-    """The caller's initial factors (arrays or tensors, one per mode) as
-    float32 tensors on `device`; raises unless factor m has shape shapes[m]."""
+def given_factors(init_factors: Sequence, shapes: Sequence[tuple[int, ...]],
+                  device: torch.device, what: str = "factor") -> list[torch.Tensor]:
+    """The caller's initial factors (or TT cores, `what="core"`: arrays or
+    tensors, one per mode) as float32 tensors on `device`; raises unless
+    factor m has shape shapes[m]."""
     if len(init_factors) != len(shapes):
-        raise ValueError(f"{len(init_factors)} initial factors for a {len(shapes)}-mode tensor")
+        raise ValueError(f"{len(init_factors)} initial {what}s for a {len(shapes)}-mode tensor")
     out = []
     for m, (f, shape) in enumerate(zip(init_factors, shapes)):
         t = f if isinstance(f, torch.Tensor) else torch.tensor(np.asarray(f, np.float32))
         if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"initial factor {m} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+            raise ValueError(f"initial {what} {m} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         out.append(t.to(device=device, dtype=torch.float32))
     return out
 

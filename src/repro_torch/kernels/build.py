@@ -3,8 +3,8 @@
 Every `kernels/csrc/*.cu` source is compiled at first use by `nvcc` into a
 shared library with a plain C interface under `build/kernels/` at the root
 of the checkout (listed in .gitignore), and loaded with `ctypes`.  Libraries
-are cached by a hash of the source and the flags, so an unchanged source is
-built once.  All sources that need building are compiled in parallel, one
+are cached by a hash of the source, the shared headers (`csrc/*.cuh`) and
+the flags, so an unchanged source is built once.  All sources that need building are compiled in parallel, one
 `nvcc` process each.  A failed build or load raises: there is no fallback.
 """
 from __future__ import annotations
@@ -44,6 +44,8 @@ def nvcc_path() -> str:
 
 def _library(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -72,15 +72,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "blocked.cuh"
+
 namespace {
 
 constexpr int kMaxIn = 4;
-constexpr int kThreads = 256;
-constexpr int kChunk = kThreads;   // slots compacted per step, one per thread
-constexpr int kMaxSlice = 64;      // columns per CTA
-constexpr int kMinSlice = 8;       // at most 32 segments per step
-constexpr int kBlocksPerCta = 64;  // bounds a tile element's float32 sum chain
-constexpr int kWarps = kThreads / 32;
 constexpr int kGather = 8;         // staging loads in flight per thread
 
 struct Args {
@@ -105,56 +101,6 @@ struct Args {
   int slices;  // column slices: ceil(ncols / slice)
   int groups;  // threads per column, each taking a segment of a step: kThreads / slice
 };
-
-// Add the slice's non-zero partial sums to the output and zero the tile.
-// Each thread reads and clears only its own elements.
-__device__ __forceinline__ void flush_tile(const Args& a, float* s_tile, int tile) {
-  const int elems = a.tile_i * a.slice;
-  float* dst = a.out + static_cast<int64_t>(tile) * a.tile_i * a.ldo +
-               static_cast<int64_t>(blockIdx.x % a.slices) * a.slice;
-  for (int i = threadIdx.x; i < elems; i += kThreads) {
-    const float x = s_tile[i];
-    s_tile[i] = 0.0f;
-    if (x != 0.0f) {  // columns past ncols are never added to, so stay 0
-      const int r = i / a.slice;
-      atomicAdd(dst + static_cast<int64_t>(r) * a.ldo + (i - r * a.slice), x);
-    }
-  }
-}
-
-// Exclusive prefix sum of s[0..n) in place, by all threads of the CTA; returns
-// the total.  Each thread scans a contiguous run of entries; the runs' sums
-// are scanned across the CTA with warp shuffles.
-__device__ int exclusive_scan(int* s, int n, int* s_warp) {
-  const int per = (n + kThreads - 1) / kThreads;
-  const int lo = static_cast<int>(threadIdx.x) * per;
-  const int hi = lo + per < n ? lo + per : n;
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += s[i];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = sum;  // inclusive scan within the warp
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x += y;
-  }
-  if (lane == 31) s_warp[warp] = x;
-  __syncthreads();
-  int run = x - sum, total = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    const int t = s_warp[w];
-    if (w < warp) run += t;
-    total += t;
-  }
-  for (int i = lo; i < hi; ++i) {
-    const int c = s[i];
-    s[i] = run;
-    run += c;
-  }
-  __syncthreads();
-  return total;
-}
 
 template <int N_IN>
 __global__ void __launch_bounds__(kThreads) ttmc_blocked_kernel(const Args a) {
@@ -306,38 +252,6 @@ size_t dynamic_smem(const Args& a) {
          static_cast<size_t>(a.tile_i) * sizeof(int);
 }
 
-template <int N_IN>
-int launch(const Args& a, int device, cudaStream_t stream) {
-  auto kernel = ttmc_blocked_kernel<N_IN>;
-  const size_t smem = dynamic_smem(a);
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int optin = 0, sms = 0;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem + attr.sharedSizeBytes > static_cast<size_t>(optin)) return -1;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return -1;
-  // At least one wave of CTAs over all slices, and ranges of at most
-  // kBlocksPerCta blocks; one CTA per (range, slice).
-  long long ranges = static_cast<long long>(sms) * per_sm / a.slices;
-  const long long short_ranges = (a.nblocks + kBlocksPerCta - 1) / kBlocksPerCta;
-  if (ranges < short_ranges) ranges = short_ranges;
-  if (ranges < 1) ranges = 1;
-  if (ranges > a.nblocks) ranges = a.nblocks;
-  if (ranges * a.slices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<static_cast<unsigned>(ranges * a.slices), kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Launch on `stream`.  The pointer arrays hold n_in device pointers each,
@@ -370,8 +284,7 @@ extern "C" int ttmc_blocked_launch(
     if (ncols > ldo) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nblocks == 0) return 0;
-  int slice = kMinSlice;
-  while (slice < kMaxSlice && slice < ncols) slice *= 2;
+  const int slice = slice_for(ncols);
   a.vals = vals;
   a.iloc = iloc;
   a.block_it = block_it;
@@ -390,8 +303,8 @@ extern "C" int ttmc_blocked_launch(
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_in) {
-    case 2: return launch<2>(a, device, s);
-    case 3: return launch<3>(a, device, s);
-    default: return launch<4>(a, device, s);
+    case 2: return launch_ranges(ttmc_blocked_kernel<2>, a, dynamic_smem(a), device, s);
+    case 3: return launch_ranges(ttmc_blocked_kernel<3>, a, dynamic_smem(a), device, s);
+    default: return launch_ranges(ttmc_blocked_kernel<4>, a, dynamic_smem(a), device, s);
   }
 }

@@ -1,9 +1,10 @@
-"""Planned MTTKRP and TTMc, and the planned CP-ALS workspace.
+"""Planned MTTKRP, TTMc and TT-core ops, and the planned CP-ALS workspace.
 
-Counterpart of the MTTKRP and TTMc parts of `repro.kernels.ops`:
-`PlannedMTTKRP` / `PlannedTTMC` hold one output mode's device-resident
-BlockPlan and run their kernel on it (for one tensor, mode and config both
-get the same plan: the kernel adapts to the layout); `PlannedCPALS` holds
+Counterpart of the MTTKRP, TTMc and TT-core parts of `repro.kernels.ops`:
+`PlannedMTTKRP` / `PlannedTTMC` / `PlannedTTCore` hold one output mode's
+device-resident BlockPlan and run their kernel on it (for one tensor, mode
+and config all get the same plan: the kernel adapts to the layout);
+`PlannedCPALS` holds
 one per mode, built once and reused by every ALS iteration (the plan/remap
 cost is amortized over the decomposition).  No plan cache, no PMS auto-tune
 and no sharding yet.
@@ -21,6 +22,7 @@ from ..core.memctrl import MemoryControllerConfig
 from ..core.remap import BlockPlan, plan_blocks
 from ..device import resolve_device
 from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
+from .tt import tt_out_cols, tt_out_pair, ttcore_blocked
 from .ttm import kron_cols, ttmc_blocked
 from .workspace import PlannedWorkspace
 
@@ -29,6 +31,8 @@ __all__ = [
     "make_planned_mttkrp",
     "PlannedTTMC",
     "make_planned_ttmc",
+    "PlannedTTCore",
+    "make_planned_ttcore",
     "PlannedCPALS",
     "make_planned_cp_als",
 ]
@@ -127,6 +131,82 @@ def make_planned_ttmc(
     cfg = cfg or MemoryControllerConfig()
     plan = _plan(st, mode, cfg, device)
     return PlannedTTMC(plan=plan, in_ranks=tuple(core_ranks[m] for m in plan.in_modes), cfg=cfg)
+
+
+def _tt_bond_pairs(tt_ranks: Sequence[int], nmodes: int) -> tuple[tuple[int, int], ...]:
+    """Per-core (rl_k, rr_k) bond pairs from the N-1 interior TT ranks
+    (boundary bonds are 1 by definition)."""
+    tt_ranks = tuple(int(r) for r in tt_ranks)
+    if len(tt_ranks) != nmodes - 1:
+        raise ValueError(
+            f"tt_ranks has {len(tt_ranks)} entries for a {nmodes}-mode "
+            f"tensor (pass the N-1 interior TT ranks)")
+    bounds = (1,) + tt_ranks + (1,)
+    return tuple((bounds[k], bounds[k + 1]) for k in range(nmodes))
+
+
+@dataclasses.dataclass
+class PlannedTTCore:
+    """One (tensor, output mode) for the TT-core kernel: the same
+    device-resident BlockPlan as MTTKRP's, and the input cores' (rl, rr)
+    bond pairs `in_rank_pairs` in plan.in_modes order (ascending, so the
+    first `plan.mode` of them chain from the left); the output has
+    rl_m * rr_m true columns."""
+
+    plan: BlockPlan
+    in_rank_pairs: tuple[tuple[int, int], ...]
+    cfg: MemoryControllerConfig = dataclasses.field(default_factory=MemoryControllerConfig)
+
+    @property
+    def n_left(self) -> int:
+        """Inputs left of the output mode: plan.in_modes is ascending, so
+        exactly `plan.mode` of them precede it."""
+        return self.plan.mode
+
+    @property
+    def out_pair(self) -> tuple[int, int]:
+        return tt_out_pair(self.in_rank_pairs, self.n_left)
+
+    @property
+    def out_cols(self) -> int:
+        return tt_out_cols(self.in_rank_pairs, self.n_left)
+
+    def __call__(self, *in_mats: torch.Tensor) -> torch.Tensor:
+        """True-shape interface matrices W_k (I_k, rl_k * rr_k) of the N-1
+        input modes (plan.in_modes order).  Returns (plan.out_rows, rl_m *
+        rr_m); the wrapper's output is zeroed, so rows no non-zero reaches
+        are 0 without a row mask."""
+        p = self.plan
+        if len(in_mats) != p.n_in:
+            raise ValueError(f"{len(in_mats)} interface matrices for {p.n_in} input modes")
+        pads = [pad_factor(w, rows, rank_padded(a * b))
+                for w, rows, (a, b) in zip(in_mats, p.in_rows, self.in_rank_pairs)]
+        return ttcore_blocked(p, pads, self.in_rank_pairs, self.n_left)[:, : self.out_cols]
+
+    def output(self, mats: Sequence[torch.Tensor], true_rows: int) -> torch.Tensor:
+        """B_m from ALL N interface matrices (the output mode's is ignored),
+        cut to the mode's true rows."""
+        return self(*(mats[m] for m in self.plan.in_modes))[:true_rows]
+
+
+def make_planned_ttcore(
+    st: SparseTensor,
+    mode: int,
+    tt_ranks: Sequence[int],
+    *,
+    cfg: MemoryControllerConfig | None = None,
+    device: str | torch.device | None = None,
+) -> PlannedTTCore:
+    """Build one output mode's layout for the TT-core kernel on `device`.
+
+    `tt_ranks` are the N-1 INTERIOR TT bond ranks (boundary bonds are 1);
+    the op's `in_rank_pairs` are the per-core (rl, rr) pairs in
+    plan.in_modes order.  The plan is the one `make_planned_mttkrp` builds
+    for the same (tensor, mode, cfg)."""
+    pairs = _tt_bond_pairs(tt_ranks, st.nmodes)
+    cfg = cfg or MemoryControllerConfig()
+    plan = _plan(st, mode, cfg, device)
+    return PlannedTTCore(plan=plan, in_rank_pairs=tuple(pairs[m] for m in plan.in_modes), cfg=cfg)
 
 
 @dataclasses.dataclass

@@ -70,10 +70,9 @@ def test_seeded_init_is_deterministic_and_tol_stops_early(tiny_tensor):
     assert len(c.fit_history) == 2
 
 
-@pytest.mark.parametrize("fmt,item", [("tt", "item 7")])
-def test_unported_formats_name_their_roadmap_item(tiny_tensor, fmt, item):
-    with pytest.raises(NotImplementedError, match=item):
-        decompose(to_port(tiny_tensor), RANK, format=fmt, device="cpu")
+def test_tt_runs_on_cpu(tiny_tensor):
+    state = decompose(to_port(tiny_tensor), RANK, format="tt", iters=2, device="cpu")
+    assert state.tt_ranks == (RANK,) * 2 and len(state.fit_history) == 2
 
 
 def test_tucker_runs_on_cpu(tiny_tensor):

@@ -1,6 +1,6 @@
-"""Port tests that need the card: the CUDA MTTKRP and TTMc kernels against
-their plain versions, and the CP-ALS and Tucker HOOI paths on CUDA against
-the CPU path.  Marked `gpu`;
+"""Port tests that need the card: the CUDA MTTKRP, TTMc and TT-core kernels
+against their plain versions, and the CP-ALS, Tucker HOOI and TT-ALS paths
+on CUDA against the CPU path.  Marked `gpu`;
 they skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
@@ -18,7 +18,9 @@ from repro_torch.core.coo import frostt_like
 from repro_torch.core.memctrl import CacheEngineConfig, DMAEngineConfig, MemoryControllerConfig
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded
 from repro_torch.kernels.ops import make_planned_cp_als
+from repro_torch.kernels.tt import ttcore_blocked, ttcore_blocked_plain
 from repro_torch.kernels.ttm import ttmc_blocked, ttmc_blocked_plain
+from repro_torch.tt import init_tt_cores, make_planned_tt
 from repro_torch.tucker import init_tucker_factors, make_planned_tucker
 
 pytestmark = pytest.mark.gpu
@@ -111,5 +113,47 @@ def test_cuda_tucker_fits_match_cpu(cuda):
     init = init_tucker_factors(st.shape, (3, 5, 2), seed=1, device=cuda)
     a = decompose(st, (3, 5, 2), format="tucker", iters=3, init_factors=init, device=cuda)
     b = decompose(st, (3, 5, 2), format="tucker", iters=3, init_factors=[f.cpu() for f in init],
+                  device="cpu")
+    assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
+
+
+# Mixed TT ranks on every preset (bonds that change at every chain step),
+# and the NELL-2 shape's (16, 16): 256 output columns on the middle mode.
+TT_RANKS = {
+    "tiny": [(3, 5), (16, 16)],
+    "4d_small": [(4, 3, 5)],
+    "5d_small": [(2, 4, 3, 2)],
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("preset,tt_ranks", [(p, r) for p, rs in TT_RANKS.items() for r in rs])
+def test_ttcore_kernel_matches_plain_version(cuda, preset, tt_ranks, geometry):
+    """TT-core kernel vs the plain version evaluated in float64 on the same
+    inputs, relative to each output column's max; padded lanes exactly 0."""
+    st = frostt_like(preset)
+    ws = make_planned_tt(st, tt_ranks, cfg=GEOMETRIES[geometry], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = ttcore_blocked.launches
+    for m in range(st.nmodes):
+        op = ws.ops[m]
+        mats = [torch.randn((rows, rank_padded(a * b)), generator=gen, device=cuda)
+                for rows, (a, b) in zip(op.plan.in_rows, op.in_rank_pairs)]
+        got = ttcore_blocked(op.plan, mats, op.in_rank_pairs, op.n_left)
+        want = ttcore_blocked_plain(dataclasses.replace(op.plan, vals=op.plan.vals.double()),
+                                    [w.double() for w in mats], op.in_rank_pairs, op.n_left)
+        assert got.shape == want.shape
+        assert not got[:, op.out_cols:].any()
+        scale = want.abs().amax(0)[: op.out_cols].clamp_min(1e-300)
+        err = (got.double() - want).abs().amax(0)[: op.out_cols] / scale
+        assert float(err.max()) <= TOL
+    assert ttcore_blocked.launches == before + st.nmodes
+
+
+def test_cuda_tt_fits_match_cpu(cuda):
+    st = frostt_like("tiny")
+    init = init_tt_cores(st.shape, (3, 5), seed=1, device=cuda)
+    a = decompose(st, (3, 5), format="tt", iters=3, init_factors=init, device=cuda)
+    b = decompose(st, (3, 5), format="tt", iters=3, init_factors=[c.cpu() for c in init],
                   device="cpu")
     assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL

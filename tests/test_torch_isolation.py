@@ -15,7 +15,9 @@ from repro_torch.core import coo as tcoo
 from repro_torch.core.remap import plan_blocks
 from repro_torch.kernels.mttkrp import mttkrp_blocked
 from repro_torch.kernels.ops import make_planned_cp_als
+from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import ttmc_blocked
+from repro_torch.tt import make_planned_tt, tt_als
 from repro_torch.tucker import make_planned_tucker, tucker_hooi
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,7 +44,7 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.convert, repro_torch.kernels.build, "
-            "repro_torch.tucker; "
+            "repro_torch.tucker, repro_torch.tt; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -61,15 +63,21 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
                  lambda: plan_blocks(st, 0),
                  lambda: decompose(st, 4, format="tucker"),
                  lambda: tucker_hooi(st, (4, 4, 4), method="reference"),
-                 lambda: make_planned_tucker(st, (4, 4, 4))):
+                 lambda: make_planned_tucker(st, (4, 4, 4)),
+                 lambda: decompose(st, 4, format="tt"),
+                 lambda: tt_als(st, (4, 4), method="reference"),
+                 lambda: make_planned_tt(st, (4, 4))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert len(decompose(st, 4, iters=1, device="cpu").fit_history) == 1
     assert len(decompose(st, 4, format="tucker", iters=1, device="cpu").fit_history) == 1
+    assert len(decompose(st, 4, format="tt", iters=1, device="cpu").fit_history) == 1
 
 
 def test_cpu_run_launches_no_kernel():
-    before = mttkrp_blocked.launches, ttmc_blocked.launches
+    before = mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches
     decompose(tcoo.frostt_like("tiny"), 4, iters=2, device="cpu")
     decompose(tcoo.frostt_like("tiny"), (3, 5, 2), format="tucker", iters=2, device="cpu")
-    assert (mttkrp_blocked.launches, ttmc_blocked.launches) == before == (0, 0)
+    decompose(tcoo.frostt_like("tiny"), (3, 5), format="tt", iters=2, device="cpu")
+    assert (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches) == before \
+        == (0, 0, 0)

@@ -21,6 +21,7 @@ from repro_torch.core.coo import SparseTensor
 from repro_torch.kernels.mttkrp import mttkrp_blocked, rank_padded
 from repro_torch.kernels.ops import make_planned_ttmc
 from repro_torch.kernels.ref import ttmc_plan_ref, ttmc_ref
+from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import cols_padded, kron_cols, ttmc_blocked, ttmc_blocked_plain
 
 # Largest error allowed relative to each output column's max: float32 sums
@@ -173,15 +174,17 @@ def malformed(case, plan, tf):
 
 
 @pytest.mark.parametrize("case", sorted(MALFORMED))
-@pytest.mark.parametrize("wrapper", ["mttkrp", "ttmc"])
+@pytest.mark.parametrize("wrapper", ["mttkrp", "ttmc", "ttcore"])
 def test_wrappers_reject_the_same_malformed_calls(tiny_tensor, wrapper, case):
     _, plan, in_ranks, facs = carried(tiny_tensor, 1, (4, 4, 4))
     bad_plan, bad_facs = malformed(case, plan, factors_from_numpy(facs, "cpu"))
     with pytest.raises(ValueError, match=MALFORMED[case]):
         if wrapper == "mttkrp":
             mttkrp_blocked(bad_plan, bad_facs)
-        else:
+        elif wrapper == "ttmc":
             ttmc_blocked(bad_plan, bad_facs, in_ranks)
+        else:  # mode 1 of a TT at ranks (4, 4): interface widths 4 and 4
+            ttcore_blocked(bad_plan, bad_facs, ((1, 4), (4, 1)), 1)
 
 
 def test_ttmc_rejects_bad_ranks(tiny_tensor):
