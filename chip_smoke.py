@@ -11,19 +11,22 @@ printing one JSON line:
 
   a  device   the card (nvidia-smi name and power limit), CUDA version
   b  build    nvcc build of every kernel, seconds, ptxas report
-  c  check    kernel vs plain version on 3-, 4- and 5-mode presets and on
+  c  check    kernel vs plain version on 3-, 4- and 5-mode presets (at rank
+              16 and at rank 256, which takes column slices) and on
               every mode of the NELL-2-size tensor; CUDA vs CPU CP-ALS fits
               on a small tensor; kernel, plain and sweep timings
   d  main     decompose(st, 16, format="cp", iters=5, seed=0) with the launch
               counters reset just before and read just after
   e  check    TTMc kernel vs plain version on 3-, 4- and 5-mode presets with
-              mixed core ranks and on every mode of the NELL-2-size tensor at
+              mixed core ranks, on a (200, 200, 200) tensor at core ranks
+              (100, 8, 100) and on every mode of the NELL-2-size tensor at
               core ranks (16, 16, 16); CUDA vs CPU HOOI fits on a small
               tensor; kernel, plain, sweep and sweep-part timings
   f  main     decompose(st, (16, 16, 16), format="tucker", iters=5, seed=0)
               with the launch counters reset just before and read just after
   g  check    TT-core kernel vs plain version on 3-, 4- and 5-mode presets
-              with mixed TT ranks and on every mode of the NELL-2-size tensor
+              with mixed TT ranks, on the (200, 200, 200) tensor at TT ranks
+              (100, 100) and on every mode of the NELL-2-size tensor
               at TT ranks (16, 16); CUDA vs CPU TT-ALS fits on a small
               tensor; kernel, plain, sweep and sweep-part timings
   h  main     decompose(st, (16, 16), format="tt", iters=5, init="random",
@@ -80,6 +83,12 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
 RANK = 16
+# Widths that the kernels take in column slices or smaller steps, on the
+# presets (CP) and on WIDE_SHAPE (Tucker, TT): never shrunk to fit.
+WIDE_RANK = 256
+WIDE_SHAPE, WIDE_NNZ, WIDE_SKEW = (200, 200, 200), 5_000, 0.8
+WIDE_CORE_RANKS = (100, 8, 100)  # mode 1's input ranks sum to 200
+WIDE_TT_RANKS = (100, 100)
 CORE_RANKS = (16, 16, 16)  # Tucker at NELL-2 size: 256 Kronecker columns per row
 # Mixed core ranks on the presets: equal ones would hide a transposed
 # Kronecker digit order.
@@ -250,17 +259,18 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rp = rank_padded(RANK)
-    presets = []
+    presets, wide = [], []
     for preset in PRESETS:
         st = frostt_like(preset)
-        ws = make_planned_cp_als(st, RANK, device="cuda")
-        for m in range(st.nmodes):
-            plan = ws.plan_for(m)
-            facs = random_padded(plan, [rp] * plan.n_in, gen)
-            presets.append({"preset": preset, "mode": m, "n_in": plan.n_in,
+        for rank, out in ((RANK, presets), (WIDE_RANK, wide)):
+            ws = make_planned_cp_als(st, rank, device="cuda")
+            for m in range(st.nmodes):
+                plan = ws.plan_for(m)
+                facs = random_padded(plan, [rank_padded(rank)] * plan.n_in, gen)
+                out.append({"preset": preset, "rank": rank, "mode": m, "n_in": plan.n_in,
                             **check_kernel(mttkrp_blocked, mttkrp_blocked_plain, plan, facs,
-                                           tol=TOL_PRESET, what=f"{preset} mode {m}")})
-        del ws
+                                           tol=TOL_PRESET, what=f"{preset} rank {rank} mode {m}")})
+            del ws
 
     tiny = frostt_like("tiny")
     init = [torch.randn((s, RANK), generator=gen, device="cuda") / math.sqrt(RANK) for s in tiny.shape]
@@ -305,7 +315,7 @@ def main() -> int:
     # d's peak device memory counts only what decompose holds.
     del ws, plan, facs, lam, true, idx, val, norm_x_sq, init
     torch.cuda.empty_cache()
-    emit({"phase": "c", "presets": presets, "tiny_fit_gap_cuda_cpu": fit_gap,
+    emit({"phase": "c", "presets": presets, "wide": wide, "tiny_fit_gap_cuda_cpu": fit_gap,
           "nell2_modes": modes, "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
 
     torch.cuda.reset_peak_memory_stats()
@@ -370,6 +380,16 @@ def tucker_phases(st, gen: torch.Generator) -> dict:
                             **check_kernel(ttmc_blocked, ttmc_blocked_plain, op.plan, facs,
                                            op.in_ranks, tol=TOL_PRESET, what=f"{preset} mode {m}")})
         del ws
+    wide_st = synthetic_tensor(WIDE_SHAPE, WIDE_NNZ, seed=0, skew=WIDE_SKEW)
+    ws = make_planned_tucker(wide_st, WIDE_CORE_RANKS, device="cuda")
+    wide = []
+    for m, op in ws.ops.items():
+        facs = random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen)
+        wide.append({"shape": list(WIDE_SHAPE), "core_ranks": list(WIDE_CORE_RANKS), "mode": m,
+                     "in_ranks": list(op.in_ranks), "cols": op.out_cols,
+                     **check_kernel(ttmc_blocked, ttmc_blocked_plain, op.plan, facs, op.in_ranks,
+                                    tol=TOL_PRESET, what=f"wide TTMc mode {m}")})
+    del ws
 
     tiny = frostt_like("tiny")
     init = init_tucker_factors(tiny.shape, PRESET_CORE_RANKS["tiny"], seed=0, device=torch.device("cuda"))
@@ -415,7 +435,7 @@ def tucker_phases(st, gen: torch.Generator) -> dict:
     kernel_ms = sum(x["ms"] for x in modes)
     del ws, op, plan, facs, in_facs, ys, u_last, norm_x_sq, init
     torch.cuda.empty_cache()
-    emit({"phase": "e", "presets": presets, "tiny_fit_gap_cuda_cpu": fit_gap,
+    emit({"phase": "e", "presets": presets, "wide": wide, "tiny_fit_gap_cuda_cpu": fit_gap,
           "nell2_core_ranks": list(CORE_RANKS), "nell2_modes": modes, "plan_build_s": plan_build_s,
           "sweep_ms": sweep_ms, "kernel_ms": kernel_ms, "factor_update_ms": factor_ms,
           "core_fit_ms": core_fit_ms,
@@ -477,6 +497,17 @@ def tt_phases(st, gen: torch.Generator) -> dict:
                                            op.in_rank_pairs, op.n_left, tol=TOL_PRESET,
                                            what=f"{preset} TT mode {m}")})
         del ws
+    wide_st = synthetic_tensor(WIDE_SHAPE, WIDE_NNZ, seed=0, skew=WIDE_SKEW)
+    ws = make_planned_tt(wide_st, WIDE_TT_RANKS, device="cuda")
+    wide = []
+    for m, op in ws.ops.items():
+        mats = random_padded(op.plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen)
+        wide.append({"shape": list(WIDE_SHAPE), "tt_ranks": list(WIDE_TT_RANKS), "mode": m,
+                     "in_rank_pairs": list(op.in_rank_pairs), "cols": op.out_cols,
+                     **check_kernel(ttcore_blocked, ttcore_blocked_plain, op.plan, mats,
+                                    op.in_rank_pairs, op.n_left, tol=TOL_PRESET,
+                                    what=f"wide TT mode {m}")})
+    del ws
 
     tiny = frostt_like("tiny")
     tiny_ranks = PRESET_TT_RANKS["tiny"]
@@ -537,7 +568,7 @@ def tt_phases(st, gen: torch.Generator) -> dict:
     kernel_ms = sum(x["ms"] for x in modes)
     del ws, op, plan, facs, in_mats, bs, cores, p_last, idx, val, norm_x_sq, init
     torch.cuda.empty_cache()
-    emit({"phase": "g", "presets": presets, "tiny_fit_gap_cuda_cpu": fit_gap,
+    emit({"phase": "g", "presets": presets, "wide": wide, "tiny_fit_gap_cuda_cpu": fit_gap,
           "nell2_tt_ranks": list(TT_RANKS), "nell2_modes": modes, "plan_build_s": plan_build_s,
           "sweep_ms": sweep_ms, "kernel_ms": kernel_ms, "solve_gram_ms": solve_gram_ms,
           "fit_ms": fit_ms, "rest_ms": sweep_ms - kernel_ms - solve_gram_ms - fit_ms,

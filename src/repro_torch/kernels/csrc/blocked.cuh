@@ -1,10 +1,13 @@
 // What the row-sorting kernels on the BlockPlan layout share (csrc/ttmc.cu,
-// csrc/ttcore.cu): the CTA shape, the shared-memory tile's flush, the
-// CTA-wide scan of the counting sort, and the launch over (block range,
-// column slice) CTAs.  Each kernel library is one translation unit that
-// includes this header once, so everything here has internal linkage.
+// csrc/ttcore.cu): the CTA shape, the CTA-wide scan of the counting sort,
+// the shared-memory budget, and the launch over ranges of plan blocks with
+// `slices` CTAs each; for the TTMc kernel also the column slice and the
+// tile's flush (the TT-core kernel splits its tile its own way).  Each kernel
+// library is one translation unit that includes this header once, so
+// everything here has internal linkage.
 //
-// A kernel's Args must have: out, nblocks, tile_i, ldo, slice, slices.
+// launch_ranges needs Args with nblocks and slices; flush_tile also out,
+// tile_i, ldo and slice.
 
 #pragma once
 
@@ -14,7 +17,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kChunk = kThreads;   // slots compacted per step, one per thread
+constexpr int kChunk = kThreads;   // most slots compacted per step, one per thread
 constexpr int kMaxSlice = 64;      // columns per CTA
 constexpr int kMinSlice = 8;       // at most 32 segments per step
 constexpr int kBlocksPerCta = 64;  // bounds a tile element's float32 sum chain
@@ -72,11 +75,29 @@ __device__ int exclusive_scan(int* s, int n, int* s_warp) {
 }
 
 // The column slice for `ncols` output columns: the least power of two in
-// [kMinSlice, kMaxSlice] that holds them, else kMaxSlice.
+// [kMinSlice, kMaxSlice] that holds them, else kMaxSlice.  A launch halves
+// it (down to kMinSlice) only where a tile_i x slice tile would leave no
+// room for the slots of a step.
 inline int slice_for(long long ncols) {
   int slice = kMinSlice;
   while (slice < kMaxSlice && slice < ncols) slice *= 2;
   return slice;
+}
+
+// Bytes of dynamic shared memory a CTA of `kernel` may take on `device`:
+// the opt-in limit per block less the kernel's static arrays.  Returns 0 or
+// a cudaError_t.
+template <class Kernel>
+int dynamic_budget(Kernel kernel, int device, size_t* bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *bytes = static_cast<size_t>(optin) > attr.sharedSizeBytes
+               ? static_cast<size_t>(optin) - attr.sharedSizeBytes : 0;
+  return 0;
 }
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`:

@@ -17,9 +17,15 @@
 //     so the kernel parallelises over plan blocks (hundreds of thousands at
 //     NELL-2 size), not over output-tile runs (36-113 per mode, too few to
 //     fill the card): each CTA takes one contiguous range of plan blocks.
-//   * The output tile being summed lives in shared memory (tile_i x ld
-//     floats, 16 KB at the default tile_i = 256 and rank 16), as the Pallas
-//     kernel keeps its accumulator in VMEM.  Contributions go to it with
+//   * The output tile being summed lives in shared memory, as the Pallas
+//     kernel keeps its accumulator in VMEM: tile_i x ld floats, 16 KB at
+//     the default tile_i = 256 and rank 16.  Where that does not fit in a
+//     CTA (rank above about 200 at tile_i = 256), a grid dimension splits
+//     the columns into `slices` of `slice` columns (a multiple of 4, chosen
+//     at launch from the shared-memory budget), and each CTA keeps a
+//     tile_i x slice tile; the slices of one block range run side by side,
+//     so they re-read the same stream and factor rows from L2.  At rank 16
+//     there is one slice.  Contributions go to the tile with
 //     shared-memory atomics; when the range moves to the next output tile,
 //     and at its end, the non-zero partial sums are added to the output in
 //     device memory with one global atomic each.  Blocks are sorted by
@@ -56,6 +62,7 @@ namespace {
 
 constexpr int kMaxIn = 4;
 constexpr int kThreads = 256;
+constexpr int kMinSlice = 8;  // the narrowest column slice the launch chooses
 
 struct Args {
   const float* vals;
@@ -69,24 +76,30 @@ struct Args {
   int64_t nblocks;
   int blk;
   int tile_i;
-  int ld;  // row stride of every factor and of out: the padded rank
+  int ld;      // row stride of every factor and of out: the padded rank
+  int slice;   // columns per CTA: ld, or a multiple of 4 below it
+  int slices;  // column slices: ceil(ld / slice)
 };
 
 // Add the tile's non-zero partial sums to the output and zero the tile.
 // Each thread reads and clears only its own elements.
-__device__ __forceinline__ void flush_tile(const Args& a, float* s_tile, int tile) {
-  const int elems = a.tile_i * a.ld;
-  float* dst = a.out + static_cast<int64_t>(tile) * a.tile_i * a.ld;
+__device__ __forceinline__ void flush_tile(const Args& a, float* s_tile, int tile, int c_lo,
+                                           int width) {
+  const int elems = a.tile_i * width;
+  float* dst = a.out + static_cast<int64_t>(tile) * a.tile_i * a.ld + c_lo;
   for (int i = threadIdx.x; i < elems; i += kThreads) {
     const float x = s_tile[i];
     s_tile[i] = 0.0f;
-    if (x != 0.0f) atomicAdd(dst + i, x);
+    if (x != 0.0f) {
+      const int r = i / width;
+      atomicAdd(dst + static_cast<int64_t>(r) * a.ld + (i - r * width), x);
+    }
   }
 }
 
 template <int N_IN>
 __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) {
-  extern __shared__ float s_tile[];  // tile_i x ld partial sums
+  extern __shared__ float s_tile[];  // tile_i x width partial sums
   // The current chunk's non-zeros, compacted: value, row offset within the
   // tile and one input row offset per input mode (offsets times ld).
   __shared__ float s_val[kThreads];
@@ -94,10 +107,15 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
   __shared__ int64_t s_in[N_IN][kThreads];
   __shared__ int s_count;
 
-  for (int i = threadIdx.x; i < a.tile_i * a.ld; i += kThreads) s_tile[i] = 0.0f;
+  // CTA b takes column slice b % slices of block range b / slices.
+  const int64_t range = blockIdx.x / a.slices;
+  const int64_t ranges = gridDim.x / a.slices;
+  const int c_lo = static_cast<int>(blockIdx.x % a.slices) * a.slice;
+  const int width = a.ld - c_lo < a.slice ? a.ld - c_lo : a.slice;  // this CTA's columns
+  for (int i = threadIdx.x; i < a.tile_i * width; i += kThreads) s_tile[i] = 0.0f;
 
-  const int64_t per = (a.nblocks + gridDim.x - 1) / gridDim.x;
-  const int64_t b_begin = static_cast<int64_t>(blockIdx.x) * per;
+  const int64_t per = (a.nblocks + ranges - 1) / ranges;
+  const int64_t b_begin = range * per;
   const int64_t b_end = b_begin + per < a.nblocks ? b_begin + per : a.nblocks;
   int cur_tile = -1;
   for (int64_t b = b_begin; b < b_end; ++b) {
@@ -105,7 +123,7 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
     if (tile != cur_tile) {
       // Every thread passed the previous chunk's closing barrier, so the
       // tile holds all of the previous run's contributions.
-      if (cur_tile >= 0) flush_tile(a, s_tile, cur_tile);
+      if (cur_tile >= 0) flush_tile(a, s_tile, cur_tile, c_lo, width);
       cur_tile = tile;
     }
     int64_t in_base[N_IN];
@@ -123,18 +141,18 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
         if (v != 0.0f) {
           const int k = atomicAdd(&s_count, 1);
           s_val[k] = v;
-          s_row[k] = a.iloc[slot] * a.ld;
+          s_row[k] = a.iloc[slot] * width;
 #pragma unroll
           for (int n = 0; n < N_IN; ++n) {
-            s_in[n][k] = (in_base[n] + a.in_locs[n][slot]) * a.ld;
+            s_in[n][k] = (in_base[n] + a.in_locs[n][slot]) * a.ld + c_lo;
           }
         }
       }
       __syncthreads();
-      const int items = s_count * a.ld;
+      const int items = s_count * width;
       for (int e = threadIdx.x; e < items; e += kThreads) {
-        const int k = e / a.ld;
-        const int c = e - k * a.ld;
+        const int k = e / width;
+        const int c = e - k * width;
         float p = s_val[k];
 #pragma unroll
         for (int n = 0; n < N_IN; ++n) {
@@ -145,48 +163,70 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
       __syncthreads();  // the compacted list and the tile are complete
     }
   }
-  if (cur_tile >= 0) flush_tile(a, s_tile, cur_tile);
+  if (cur_tile >= 0) flush_tile(a, s_tile, cur_tile, c_lo, width);
 }
 
+// Choose the column slice and launch: one slice when the whole tile_i x ld
+// tile fits beside the kernel's static arrays, else the fewest slices of a
+// multiple of 4 columns (at least min(ld, kMinSlice)) that fit; one CTA per
+// (block range, slice), at most one wave of block ranges.  Returns 0, -1
+// when not even the narrowest slice fits, else a cudaError_t.
 template <int N_IN>
-cudaError_t launch(const Args& a, int sms, size_t smem, cudaStream_t stream) {
+int launch(Args a, int device, cudaStream_t stream) {
   auto kernel = mttkrp_blocked_kernel<N_IN>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int optin = 0, sms = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long avail = (static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes)) /
+                          static_cast<long long>(sizeof(float)) / a.tile_i;  // columns that fit
+  const int narrowest = a.ld < kMinSlice ? a.ld : kMinSlice;
+  if (avail < narrowest) return -1;
+  if (avail >= a.ld) {
+    a.slice = a.ld;
+  } else {
+    const int widest = static_cast<int>(avail) / 4 * 4;
+    const int slices = (a.ld + widest - 1) / widest;
+    a.slice = ((a.ld + slices - 1) / slices + 3) / 4 * 4;
+  }
+  a.slices = (a.ld + a.slice - 1) / a.slice;
+  const size_t smem = static_cast<size_t>(a.tile_i) * a.slice * sizeof(float);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long cap = static_cast<long long>(sms) * per_sm;
-  const unsigned grid = static_cast<unsigned>(a.nblocks < cap ? a.nblocks : cap);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return -1;
+  long long ranges = static_cast<long long>(sms) * per_sm / a.slices;
+  if (ranges < 1) ranges = 1;
+  if (ranges > a.nblocks) ranges = a.nblocks;
+  if (ranges * a.slices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<static_cast<unsigned>(ranges * a.slices), kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Largest tile_i * ld the kernel takes: the output tile in shared memory
-// plus the static staging arrays must fit in one CTA's 227 KB.
-extern "C" int mttkrp_blocked_max_tile_elems() { return 50 * 1024; }
-
 // Launch on `stream`.  The pointer arrays hold n_in device pointers each,
-// in plan.in_modes order.  Returns a cudaError_t (0 on success).
+// in plan.in_modes order.  Returns 0 on success, -1 when a tile_i x
+// min(ld, kMinSlice) output tile does not fit in a CTA's shared memory, else
+// a cudaError_t.
 extern "C" int mttkrp_blocked_launch(
     const float* vals, const int* iloc, const int* block_it,
     const int* const* in_locs, const int* const* block_in,
     const float* const* factors, const int* in_tiles, int n_in,
     long long nblocks, int blk, int tile_i, int ld, float* out,
     int device, void* stream) {
-  if (n_in < 2 || n_in > kMaxIn || blk < 1 || tile_i < 1 || ld < 1 || nblocks < 0 ||
-      static_cast<long long>(tile_i) * ld > mttkrp_blocked_max_tile_elems()) {
+  if (n_in < 2 || n_in > kMaxIn || blk < 1 || tile_i < 1 || ld < 1 || nblocks < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nblocks == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   Args a{};
@@ -205,12 +245,10 @@ extern "C" int mttkrp_blocked_launch(
   a.tile_i = tile_i;
   a.ld = ld;
 
-  const size_t smem = static_cast<size_t>(tile_i) * ld * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_in) {
-    case 2: err = launch<2>(a, sms, smem, s); break;
-    case 3: err = launch<3>(a, sms, smem, s); break;
-    default: err = launch<4>(a, sms, smem, s); break;
+    case 2: return launch<2>(a, device, s);
+    case 3: return launch<3>(a, device, s);
+    default: return launch<4>(a, device, s);
   }
-  return static_cast<int>(err);
 }

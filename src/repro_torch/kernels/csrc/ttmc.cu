@@ -34,7 +34,9 @@
 //     values (16 B per slot for 3 modes, little beside 64 outputs per slot),
 //     and the slices of one block range run side by side, so the re-reads
 //     hit L2.
-//   * Hot rows.  Each step takes up to 256 slots of a block, keeps those
+//   * Hot rows.  Each step takes up to `chunk` slots of a block (256, or
+//     fewer where wide factor rows fill the shared memory: chosen at
+//     launch, so input ranks summing to 200 still run), keeps those
 //     whose value is non-zero (plans are 28-99% padding), and sorts them by
 //     row in shared memory (a counting sort over the tile's rows).  A thread
 //     owns one column of the slice; the threads of a column split the
@@ -91,6 +93,7 @@ struct Args {
   int rank[kMaxIn];  // true rank of each factor: the lanes read
   int off[kMaxIn];   // first lane of input n in a staged slot: sum of earlier ranks
   int sum_r;         // lanes of a staged slot: the sum of the ranks
+  int chunk;         // slots per step, at most kChunk: what the shared memory holds
   float* out;
   int64_t nblocks;
   int blk;
@@ -106,8 +109,8 @@ template <int N_IN>
 __global__ void __launch_bounds__(kThreads) ttmc_blocked_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_tile = reinterpret_cast<float*>(smem);  // tile_i x slice partial sums
-  float* s_fac = s_tile + a.tile_i * a.slice;      // kChunk x sum_r staged lanes
-  int* s_start = reinterpret_cast<int*>(s_fac + kChunk * a.sum_r);  // tile_i row counts, then starts
+  float* s_fac = s_tile + a.tile_i * a.slice;      // chunk x sum_r staged lanes
+  int* s_start = reinterpret_cast<int*>(s_fac + a.chunk * a.sum_r);  // tile_i row counts, then starts
   // The step's non-zero slots in row order: factor row offsets (row * ld),
   // value, tile row offset (iloc * slice).
   __shared__ int64_t s_in[N_IN][kChunk];
@@ -151,15 +154,15 @@ __global__ void __launch_bounds__(kThreads) ttmc_blocked_kernel(const Args a) {
       if (cur_tile >= 0) flush_tile(a, s_tile, cur_tile);
       cur_tile = tile;
     }
-    for (int c0 = 0; c0 < a.blk; c0 += kChunk) {
-      // This thread's slot, its fields read in one round: count it in its
-      // row; `pos` is its place there.
+    for (int c0 = 0; c0 < a.blk; c0 += a.chunk) {
+      // This thread's slot (threads past `chunk` take none), its fields read
+      // in one round: count it in its row; `pos` is its place there.
       const int z = c0 + static_cast<int>(threadIdx.x);
       const int64_t slot = b * a.blk + z;
       float v = 0.0f;
       int row = 0;
       int64_t in_row[N_IN] = {};
-      if (z < a.blk) {
+      if (static_cast<int>(threadIdx.x) < a.chunk && z < a.blk) {
         v = a.vals[slot];
         row = a.iloc[slot];
 #pragma unroll
@@ -248,16 +251,40 @@ __global__ void __launch_bounds__(kThreads) ttmc_blocked_kernel(const Args a) {
 
 size_t dynamic_smem(const Args& a) {
   return static_cast<size_t>(a.tile_i) * a.slice * sizeof(float) +
-         static_cast<size_t>(kChunk) * a.sum_r * sizeof(float) +
+         static_cast<size_t>(a.chunk) * a.sum_r * sizeof(float) +
          static_cast<size_t>(a.tile_i) * sizeof(int);
+}
+
+// Size the step from the shared-memory budget and launch: the slice stays
+// slice_for(ncols) unless a tile_i x slice tile leaves no room for one
+// staged slot (then it halves, down to kMinSlice); the step takes as many
+// slots as fit beside the tile, at most kChunk.  Returns 0, -1 when not even
+// one slot fits beside a tile_i x kMinSlice tile, else a cudaError_t.
+template <int N_IN>
+int launch(Args a, int device, cudaStream_t stream) {
+  auto kernel = ttmc_blocked_kernel<N_IN>;
+  size_t budget = 0;
+  const int err = dynamic_budget(kernel, device, &budget);
+  if (err != 0) return err;
+  const size_t fixed_per_col = static_cast<size_t>(a.tile_i) * sizeof(float);
+  const size_t fixed = static_cast<size_t>(a.tile_i) * sizeof(int);
+  const size_t per_slot = static_cast<size_t>(a.sum_r) * sizeof(float);
+  while (a.slice > kMinSlice && fixed_per_col * a.slice + fixed + per_slot > budget) a.slice /= 2;
+  const size_t used = fixed_per_col * a.slice + fixed;
+  if (used + per_slot > budget) return -1;
+  const size_t fit = (budget - used) / per_slot;
+  a.chunk = fit < static_cast<size_t>(kChunk) ? static_cast<int>(fit) : kChunk;
+  a.slices = (a.ncols + a.slice - 1) / a.slice;
+  a.groups = kThreads / a.slice;
+  return launch_ranges(kernel, a, dynamic_smem(a), device, stream);
 }
 
 }  // namespace
 
 // Launch on `stream`.  The pointer arrays hold n_in device pointers each,
 // and in_tiles / ld / ranks n_in ints, in plan.in_modes order.  Returns 0 on
-// success, -1 when the tile and staging arrays do not fit in a CTA's shared
-// memory, else a cudaError_t.
+// success, -1 when not even one staged slot fits beside a tile_i x kMinSlice
+// tile in a CTA's shared memory, else a cudaError_t.
 extern "C" int ttmc_blocked_launch(
     const float* vals, const int* iloc, const int* block_it,
     const int* const* in_locs, const int* const* block_in,
@@ -284,7 +311,6 @@ extern "C" int ttmc_blocked_launch(
     if (ncols > ldo) return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nblocks == 0) return 0;
-  const int slice = slice_for(ncols);
   a.vals = vals;
   a.iloc = iloc;
   a.block_it = block_it;
@@ -295,16 +321,14 @@ extern "C" int ttmc_blocked_launch(
   a.tile_i = tile_i;
   a.ldo = ldo;
   a.ncols = static_cast<int>(ncols);
-  a.slice = slice;
-  a.slices = static_cast<int>((ncols + slice - 1) / slice);
-  a.groups = kThreads / slice;
+  a.slice = slice_for(ncols);
 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_in) {
-    case 2: return launch_ranges(ttmc_blocked_kernel<2>, a, dynamic_smem(a), device, s);
-    case 3: return launch_ranges(ttmc_blocked_kernel<3>, a, dynamic_smem(a), device, s);
-    default: return launch_ranges(ttmc_blocked_kernel<4>, a, dynamic_smem(a), device, s);
+    case 2: return launch<2>(a, device, s);
+    case 3: return launch<3>(a, device, s);
+    default: return launch<4>(a, device, s);
   }
 }

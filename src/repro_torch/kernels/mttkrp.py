@@ -21,8 +21,10 @@ from ..core.remap import BlockPlan
 
 __all__ = ["check_plan_args", "mttkrp_blocked", "mttkrp_blocked_plain", "pad_factor", "rank_padded"]
 
-#: Slots per step of the plain version (bounds its gather temporaries).
+#: Slots per step of the plain version (bounds its gather temporaries) ...
 PLAIN_CHUNK = 1 << 24
+#: ... and slot-by-lane elements per step, which binds for rows wider than 16.
+PLAIN_ELEMS = 1 << 28
 
 
 def rank_padded(rank: int) -> int:
@@ -48,7 +50,8 @@ def _rows(tile_ids: torch.Tensor, locs: torch.Tensor, tile: int) -> torch.Tensor
 def mttkrp_blocked_plain(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch version of the kernel: gather the input rows of every
     slot, multiply by the value, `index_add_` into the output rows; in
-    block-aligned chunks of about `PLAIN_CHUNK` slots.  Padding slots are
+    block-aligned chunks of about `PLAIN_CHUNK` slots, fewer where rows
+    are wider than `PLAIN_ELEMS / PLAIN_CHUNK` lanes.  Padding slots are
     computed like any other (value 0 times a finite row adds 0).
 
     Computes in the dtype of its inputs: float32 like the kernel, or float64
@@ -58,7 +61,7 @@ def mttkrp_blocked_plain(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -
     _check(plan, factors_pad, dtype)
     ld = factors_pad[0].shape[1]
     out = torch.zeros((plan.out_rows, ld), dtype=dtype, device=plan.device)
-    step = max(1, PLAIN_CHUNK // plan.blk)
+    step = max(1, min(PLAIN_CHUNK // plan.blk, PLAIN_ELEMS // (plan.blk * ld)))
     for b0 in range(0, plan.nblocks, step):
         b1 = min(plan.nblocks, b0 + step)
         s0, s1 = b0 * plan.blk, b1 * plan.blk
@@ -129,9 +132,12 @@ def _library() -> ctypes.CDLL:
             vp, vp, vp, ptrs, ptrs, ptrs, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, vp]
         lib.mttkrp_blocked_launch.restype = ctypes.c_int
-        lib.mttkrp_blocked_max_tile_elems.argtypes = []
-        lib.mttkrp_blocked_max_tile_elems.restype = ctypes.c_int
     return lib
+
+
+#: The launch's return code when not even a tile_i x 8-column slice of the
+#: output tile fits in one CTA's shared memory.
+_SMEM_TOO_SMALL = -1
 
 
 def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -139,7 +145,9 @@ def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torc
     order, each with >= plan.in_rows[n] rows and one shared width).
 
     CUDA tensors launch the Hopper kernel on the current stream (and count
-    one launch); CPU tensors run `mttkrp_blocked_plain`.  Returns
+    one launch); CPU tensors run `mttkrp_blocked_plain`.  Any width runs:
+    the kernel splits wide rows into column slices.  Raises ValueError only
+    when tile_i is so large that a tile_i x 8 slice does not fit in a CTA.  Returns
     (plan.out_rows, factor width) float32, zero wherever no non-zero lands."""
     dev = plan.vals.device
     if dev.type == "cpu":
@@ -149,10 +157,6 @@ def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torc
     _check(plan, factors_pad, torch.float32)
     n_in, ld = plan.n_in, factors_pad[0].shape[1]
     lib = _library()
-    if plan.tile_i * ld > lib.mttkrp_blocked_max_tile_elems():
-        raise ValueError(
-            f"tile_i * width = {plan.tile_i} * {ld} exceeds the kernel's shared-memory "
-            f"output tile of {lib.mttkrp_blocked_max_tile_elems()} floats")
     out = torch.zeros((plan.out_rows, ld), dtype=torch.float32, device=dev)
 
     def ptr_array(ts):
@@ -164,6 +168,11 @@ def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torc
         (ctypes.c_int * n_in)(*plan.in_tiles), n_in, plan.nblocks, plan.blk,
         plan.tile_i, ld, out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
+    if err == _SMEM_TOO_SMALL:
+        raise ValueError(
+            f"mttkrp_blocked: an output tile of tile_i = {plan.tile_i} rows by "
+            f"{min(ld, 8)} columns does not fit in one CTA's shared-memory budget; "
+            f"choose a smaller tile_i")
     if err != 0:
         raise RuntimeError(f"mttkrp_blocked kernel launch failed: cudaError_t {err}")
     mttkrp_blocked.launches += 1

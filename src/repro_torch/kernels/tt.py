@@ -147,8 +147,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-#: The launch's return code when the output tile slice, the staged chain
-#: vectors and the chain scratch do not fit in one CTA's shared memory.
+#: The launch's return code when not even one slot's staged vectors fit
+#: beside a one-row output tile in one CTA's shared memory.
 _SMEM_TOO_SMALL = -1
 
 
@@ -161,7 +161,9 @@ def ttcore_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     mode.
 
     CUDA tensors launch the Hopper kernel on the current stream (one launch,
-    counted); CPU tensors run `ttcore_blocked_plain`.  Returns
+    counted); CPU tensors run `ttcore_blocked_plain`.  Any bonds and any
+    tile_i run: the kernel sizes its steps and splits its output tile by
+    rows from the shared-memory budget.  Returns
     (plan.out_rows, rank_padded(rl_m * rr_m)) float32, zero wherever no
     non-zero lands and in every padded lane."""
     dev = plan.vals.device
@@ -190,9 +192,9 @@ def ttcore_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     )
     if err == _SMEM_TOO_SMALL:
         raise ValueError(
-            f"ttcore_blocked: an output tile of {plan.tile_i} rows, the staged chain vectors "
-            f"and the chain scratch of in_rank_pairs {pairs} (n_left={n_left}) do not fit in "
-            f"one CTA's shared memory")
+            f"ttcore_blocked: one slot's staged vectors of in_rank_pairs {pairs} "
+            f"(n_left={n_left}) do not fit beside a one-row output tile in one CTA's "
+            f"shared-memory budget")
     if err != 0:
         raise RuntimeError(f"ttcore_blocked kernel launch failed: cudaError_t {err}")
     ttcore_blocked.launches += 1

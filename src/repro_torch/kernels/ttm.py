@@ -104,8 +104,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-#: The launch's return code when the output tile and the staged factor
-#: lanes do not fit in one CTA's shared memory (tile_i or the ranks too large).
+#: The launch's return code when not even one staged slot fits beside a
+#: tile_i x 8 output tile in one CTA's shared memory.
 _SMEM_TOO_SMALL = -1
 
 
@@ -117,7 +117,8 @@ def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
 
     CUDA tensors launch the Hopper kernel on the current stream (one launch,
     counted, whatever the output width); CPU tensors run
-    `ttmc_blocked_plain`.  Returns (plan.out_rows, cols_padded(P)) float32,
+    `ttmc_blocked_plain`.  Any ranks run at tile_i = 256: the kernel sizes
+    its steps from the shared-memory budget.  Returns (plan.out_rows, cols_padded(P)) float32,
     zero wherever no non-zero lands and in every padded lane."""
     dev = plan.vals.device
     if dev.type == "cpu":
@@ -144,8 +145,9 @@ def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     )
     if err == _SMEM_TOO_SMALL:
         raise ValueError(
-            f"ttmc_blocked: an output tile of {plan.tile_i} rows and the staged factor "
-            f"lanes of in_ranks {in_ranks} do not fit in one CTA's shared memory")
+            f"ttmc_blocked: an output tile of tile_i = {plan.tile_i} rows by 8 columns leaves "
+            f"no room in one CTA's shared-memory budget for one slot's staged factor lanes of "
+            f"in_ranks {in_ranks}; choose a smaller tile_i")
     if err != 0:
         raise RuntimeError(f"ttmc_blocked kernel launch failed: cudaError_t {err}")
     ttmc_blocked.launches += 1

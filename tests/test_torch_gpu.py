@@ -1,5 +1,7 @@
 """Port tests that need the card: the CUDA MTTKRP, TTMc and TT-core kernels
-against their plain versions, and the CP-ALS, Tucker HOOI and TT-ALS paths
+against their plain versions (also at the wide ranks that need column
+slices or smaller steps: CP rank 256, Tucker (100, 8, 100), TT (24, 24),
+(40, 48) and (100, 100)), and the CP-ALS, Tucker HOOI and TT-ALS paths
 on CUDA against the CPU path.  Marked `gpu`;
 they skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch.api import decompose
-from repro_torch.core.coo import frostt_like
+from repro_torch.core.coo import frostt_like, synthetic_tensor
 from repro_torch.core.memctrl import CacheEngineConfig, DMAEngineConfig, MemoryControllerConfig
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded
 from repro_torch.kernels.ops import make_planned_cp_als
@@ -45,24 +47,51 @@ GEOMETRIES = {
 }
 
 
+def wide_tensor():
+    """A 3-mode tensor wide enough for the ranks that overflowed the kernels'
+    shared memory before they sized their steps at launch."""
+    return synthetic_tensor((200, 200, 200), 5_000, seed=0, skew=0.8)
+
+
+def assert_cols_within(got, want, ncols):
+    """Padded lanes exactly 0; true columns within TOL of each column's max."""
+    assert got.shape == want.shape
+    assert not got[:, ncols:].any()
+    scale = want.abs().amax(0)[:ncols].clamp_min(1e-300)
+    err = (got.double() - want).abs().amax(0)[:ncols] / scale
+    assert float(err.max()) <= TOL
+
+
+def check_mttkrp(cuda, st, rank, cfg):
+    """MTTKRP kernel vs the plain version evaluated in float64 on the same
+    inputs, relative to each output column's max, on every mode."""
+    ws = make_planned_cp_als(st, rank, cfg=cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    before = mttkrp_blocked.launches
+    for m in range(st.nmodes):
+        plan = ws.plan_for(m)
+        facs = [torch.randn((r, rank_padded(rank)), generator=gen, device=cuda) for r in plan.in_rows]
+        got = mttkrp_blocked(plan, facs)
+        want = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
+                                    [f.double() for f in facs])
+        assert_cols_within(got, want, rank_padded(rank))
+    assert mttkrp_blocked.launches == before + st.nmodes
+
+
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("preset", ["tiny", "4d_small", "5d_small"])
 def test_kernel_matches_plain_version(cuda, preset, geometry):
     """Kernel vs the plain version evaluated in float64 on the same inputs,
     relative to each output column's max."""
-    st = frostt_like(preset)
-    ws = make_planned_cp_als(st, 16, cfg=GEOMETRIES[geometry], device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    before = mttkrp_blocked.launches
-    for m in range(st.nmodes):
-        plan = ws.plan_for(m)
-        facs = [torch.randn((r, rank_padded(16)), generator=gen, device=cuda) for r in plan.in_rows]
-        got = mttkrp_blocked(plan, facs)
-        want = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
-                                    [f.double() for f in facs])
-        scale = want.abs().amax(0).clamp_min(1e-300)
-        assert float(((got.double() - want).abs().amax(0) / scale).max()) <= TOL
-    assert mttkrp_blocked.launches == before + st.nmodes
+    check_mttkrp(cuda, frostt_like(preset), 16, GEOMETRIES[geometry])
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("preset", ["tiny", "4d_small", "5d_small"])
+def test_kernel_matches_plain_version_at_rank_256(cuda, preset, geometry):
+    """CP rank 256: a 256 x 256 output tile (256 KB) does not fit in a CTA,
+    so the kernel takes it in column slices."""
+    check_mttkrp(cuda, frostt_like(preset), 256, GEOMETRIES[geometry])
 
 
 def test_cuda_fits_match_cpu(cuda):
@@ -83,14 +112,10 @@ TUCKER_RANKS = {
 }
 
 
-@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
-@pytest.mark.parametrize("preset,core_ranks",
-                         [(p, r) for p, rs in TUCKER_RANKS.items() for r in rs])
-def test_ttmc_kernel_matches_plain_version(cuda, preset, core_ranks, geometry):
+def check_ttmc(cuda, st, core_ranks, cfg):
     """TTMc kernel vs the plain version evaluated in float64 on the same
     inputs, relative to each output column's max; padded lanes exactly 0."""
-    st = frostt_like(preset)
-    ws = make_planned_tucker(st, core_ranks, cfg=GEOMETRIES[geometry], device=cuda)
+    ws = make_planned_tucker(st, core_ranks, cfg=cfg, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
     before = ttmc_blocked.launches
     for m in range(st.nmodes):
@@ -100,12 +125,25 @@ def test_ttmc_kernel_matches_plain_version(cuda, preset, core_ranks, geometry):
         got = ttmc_blocked(op.plan, facs, op.in_ranks)
         want = ttmc_blocked_plain(dataclasses.replace(op.plan, vals=op.plan.vals.double()),
                                   [f.double() for f in facs], op.in_ranks)
-        assert got.shape == want.shape
-        assert not got[:, op.out_cols:].any()
-        scale = want.abs().amax(0)[: op.out_cols].clamp_min(1e-300)
-        err = (got.double() - want).abs().amax(0)[: op.out_cols] / scale
-        assert float(err.max()) <= TOL
+        assert_cols_within(got, want, op.out_cols)
     assert ttmc_blocked.launches == before + st.nmodes
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("preset,core_ranks",
+                         [(p, r) for p, rs in TUCKER_RANKS.items() for r in rs])
+def test_ttmc_kernel_matches_plain_version(cuda, preset, core_ranks, geometry):
+    """TTMc kernel vs the plain version evaluated in float64 on the same
+    inputs, relative to each output column's max; padded lanes exactly 0."""
+    check_ttmc(cuda, frostt_like(preset), core_ranks, GEOMETRIES[geometry])
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_ttmc_kernel_at_wide_ranks(cuda, geometry):
+    """Core ranks (100, 8, 100): mode 1's input ranks sum to 200, so fewer
+    than 256 slots fit in a step beside the tile; modes 0 and 2 have 800
+    output columns and mode 1 10,000."""
+    check_ttmc(cuda, wide_tensor(), (100, 8, 100), GEOMETRIES[geometry])
 
 
 def test_cuda_tucker_fits_match_cpu(cuda):
@@ -126,13 +164,10 @@ TT_RANKS = {
 }
 
 
-@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
-@pytest.mark.parametrize("preset,tt_ranks", [(p, r) for p, rs in TT_RANKS.items() for r in rs])
-def test_ttcore_kernel_matches_plain_version(cuda, preset, tt_ranks, geometry):
+def check_ttcore(cuda, st, tt_ranks, cfg):
     """TT-core kernel vs the plain version evaluated in float64 on the same
     inputs, relative to each output column's max; padded lanes exactly 0."""
-    st = frostt_like(preset)
-    ws = make_planned_tt(st, tt_ranks, cfg=GEOMETRIES[geometry], device=cuda)
+    ws = make_planned_tt(st, tt_ranks, cfg=cfg, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
     before = ttcore_blocked.launches
     for m in range(st.nmodes):
@@ -142,12 +177,32 @@ def test_ttcore_kernel_matches_plain_version(cuda, preset, tt_ranks, geometry):
         got = ttcore_blocked(op.plan, mats, op.in_rank_pairs, op.n_left)
         want = ttcore_blocked_plain(dataclasses.replace(op.plan, vals=op.plan.vals.double()),
                                     [w.double() for w in mats], op.in_rank_pairs, op.n_left)
-        assert got.shape == want.shape
-        assert not got[:, op.out_cols:].any()
-        scale = want.abs().amax(0)[: op.out_cols].clamp_min(1e-300)
-        err = (got.double() - want).abs().amax(0)[: op.out_cols] / scale
-        assert float(err.max()) <= TOL
+        assert_cols_within(got, want, op.out_cols)
     assert ttcore_blocked.launches == before + st.nmodes
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("preset,tt_ranks", [(p, r) for p, rs in TT_RANKS.items() for r in rs])
+def test_ttcore_kernel_matches_plain_version(cuda, preset, tt_ranks, geometry):
+    """TT-core kernel vs the plain version evaluated in float64 on the same
+    inputs, relative to each output column's max; padded lanes exactly 0."""
+    check_ttcore(cuda, frostt_like(preset), tt_ranks, GEOMETRIES[geometry])
+
+
+# Bonds never run on a card before the kernel sized its steps at launch:
+# 17-32, above 32 (W_1 rows of 1,920 floats), and (100, 100), whose middle
+# mode stages 200 floats per slot and whose W_1 rows (10,000 floats) are read
+# from L2 rather than staged.
+TT_WIDE = {"tiny_24_24": ("tiny", (24, 24)), "tiny_40_48": ("tiny", (40, 48)),
+           "wide_100_100": ("wide", (100, 100))}
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("case", sorted(TT_WIDE))
+def test_ttcore_kernel_at_wide_bonds(cuda, case, geometry):
+    tensor, tt_ranks = TT_WIDE[case]
+    st = wide_tensor() if tensor == "wide" else frostt_like(tensor)
+    check_ttcore(cuda, st, tt_ranks, GEOMETRIES[geometry])
 
 
 def test_cuda_tt_fits_match_cpu(cuda):

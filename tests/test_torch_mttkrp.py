@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.coo import frostt_like as jax_frostt_like
 from repro.core.mttkrp import mttkrp_approach1 as jax_mttkrp_approach1
 from repro.core.remap import plan_blocks as jax_plan_blocks
 from repro.kernels.mttkrp_pallas import mttkrp_pallas_call
@@ -157,3 +158,39 @@ def test_approach1_matches_reference(request, fixture):
         got = mttkrp_approach1(torch.from_numpy(st.indices), torch.from_numpy(st.values),
                                factors_from_numpy(facs, "cpu"), mode, st.shape[mode])
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+# CP rank 256 at the default plan geometry (tile_i = 256): the CUDA kernel
+# takes rows this wide in column slices; the reference takes any rank.
+WIDE_RANK = 256
+
+
+def assert_cols_close(got, want, tol=1e-5):
+    """Largest error relative to each output column's max: float32 sums over
+    the same terms in another order."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    scale = np.maximum(np.abs(want).max(axis=0), 1e-30)
+    err = (np.abs(got - want).max(axis=0) / scale).max()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("preset", ["tiny", "4d_small", "5d_small"])
+def test_plain_matches_plan_ref_at_rank_256(preset):
+    """Every mode of the 3/4/5-mode presets at CP rank 256, default geometry:
+    the plain version against the reference's plan oracle on the same plan
+    and padded factors."""
+    st = jax_frostt_like(preset)
+    rng = np.random.default_rng(256)
+    for mode in range(st.nmodes):
+        ref = jax_plan_blocks(st, mode)
+        plan = plan_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}, "cpu")
+        facs = []
+        for rows, m in zip(ref.in_rows, ref.in_modes):
+            f = np.zeros((rows, WIDE_RANK), np.float32)
+            f[: st.shape[m]] = rng.standard_normal((st.shape[m], WIDE_RANK))
+            facs.append(f)
+        got = mttkrp_blocked_plain(plan, factors_from_numpy(facs, "cpu")).numpy()
+        want = np.asarray(jax_mttkrp_plan_ref(ref, [jnp.asarray(f) for f in facs], WIDE_RANK))
+        assert_cols_close(got, want)
+        assert not got[st.shape[mode]:].any()

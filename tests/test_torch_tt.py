@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.coo import synthetic_tensor as jax_synthetic_tensor
 from repro.core.remap import plan_blocks as jax_plan_blocks
 from repro.kernels.ref import ttcore_plan_ref as jax_ttcore_plan_ref
 from repro.kernels.ref import ttcore_ref as jax_ttcore_ref
@@ -54,11 +55,11 @@ def random_cores(shape, tt_ranks, seed):
             for s, (rl, rr) in zip(shape, _tt_bond_pairs(tt_ranks, len(shape)))]
 
 
-def carried(st, mode, tt_ranks, seed=0):
-    """The reference plan, the same plan in the port, the input bond pairs,
-    and padded interface matrices (numpy, made from a seed) for its input
-    modes."""
-    ref = jax_plan_blocks(st, mode, **TILES)
+def carried(st, mode, tt_ranks, seed=0, tiles=TILES):
+    """The reference plan (small tiles, or `tiles`; {} for the default
+    geometry), the same plan in the port, the input bond pairs, and padded
+    interface matrices (numpy, made from a seed) for its input modes."""
+    ref = jax_plan_blocks(st, mode, **tiles)
     plan = plan_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}, "cpu")
     pairs = _tt_bond_pairs(tt_ranks, st.nmodes)
     in_pairs = tuple(pairs[m] for m in ref.in_modes)
@@ -202,3 +203,34 @@ def test_bond_pairs():
     assert _tt_bond_pairs((2, 4, 3, 2), 5) == ((1, 2), (2, 4), (4, 3), (3, 2), (2, 1))
     with pytest.raises(ValueError, match="N-1 interior"):
         _tt_bond_pairs((3, 5, 2), 3)
+
+
+# Bonds at the default plan geometry that the CUDA kernel takes only since it
+# sizes its steps at launch: 17-32, above 32, and (100, 100), whose middle
+# core's interface rows hold 10,000 floats.  The reference takes them all.
+WIDE_TT = {"tiny_24_24": ("tiny_tensor", (24, 24)), "tiny_40_48": ("tiny_tensor", (40, 48)),
+           "wide_100_100": ("wide_tensor", (100, 100))}
+
+
+@pytest.fixture(scope="module")
+def wide_tensor():
+    return jax_synthetic_tensor((200, 200, 200), 5_000, seed=0, skew=0.8)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("case", sorted(WIDE_TT))
+def test_plain_matches_plan_refs_at_wide_bonds(request, case, mode):
+    """The plain version against both packages' plan oracles, default
+    geometry; padded lanes and rows exactly zero."""
+    fixture, tt_ranks = WIDE_TT[case]
+    st = request.getfixturevalue(fixture)
+    ref, plan, in_pairs, mats = carried(st, mode, tt_ranks, tiles={})
+    ncols = tt_out_cols(in_pairs, mode)
+    tm = factors_from_numpy(mats, "cpu")
+    got = ttcore_blocked_plain(plan, tm, in_pairs, mode).numpy()
+    assert got.shape == (ref.out_rows, rank_padded(ncols))
+    assert_cols_close(got[:, :ncols],
+                      jax_ttcore_plan_ref(ref, [jnp.asarray(w) for w in mats], in_pairs, mode))
+    assert_cols_close(got[:, :ncols], ttcore_plan_ref(plan, tm, in_pairs, mode))
+    assert not got[:, ncols:].any()
+    assert not got[st.shape[mode]:].any()

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.coo import synthetic_tensor as jax_synthetic_tensor
 from repro.core.remap import plan_blocks as jax_plan_blocks
 from repro.kernels.ref import ttmc_plan_ref as jax_ttmc_plan_ref
 from repro.kernels.ref import ttmc_ref as jax_ttmc_ref
@@ -47,10 +48,11 @@ def assert_cols_close(got, want):
     assert err <= COL_TOL, err
 
 
-def carried(st, mode, core_ranks, seed=0):
-    """The reference plan, the same plan in the port, the input ranks, and
-    padded factors (numpy, made from a seed) for its input modes."""
-    ref = jax_plan_blocks(st, mode, **TILES)
+def carried(st, mode, core_ranks, seed=0, tiles=TILES):
+    """The reference plan (small tiles, or `tiles`; {} for the default
+    geometry), the same plan in the port, the input ranks, and padded
+    factors (numpy, made from a seed) for its input modes."""
+    ref = jax_plan_blocks(st, mode, **tiles)
     plan = plan_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}, "cpu")
     in_ranks = tuple(core_ranks[m] for m in ref.in_modes)
     rng = np.random.default_rng(100 * seed + mode)
@@ -203,3 +205,29 @@ def test_ttmc_rejects_bad_ranks(tiny_tensor):
 def test_kron_cols_and_padding(in_ranks, ncols, padded):
     assert kron_cols(in_ranks) == ncols
     assert cols_padded(ncols) == padded
+
+
+# Core ranks (100, 8, 100) at the default plan geometry: mode 1's input ranks
+# sum to 200, so the staged lanes of 256 slots do not fit beside the output
+# tile in a CUDA thread block and the kernel takes fewer slots per step; the
+# reference takes any ranks.
+WIDE_CORE_RANKS = (100, 8, 100)
+
+
+@pytest.fixture(scope="module")
+def wide_tensor():
+    return jax_synthetic_tensor((200, 200, 200), 5_000, seed=0, skew=0.8)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_plain_matches_plan_ref_at_wide_ranks(wide_tensor, mode):
+    """The plain version against the reference's plan oracle at core ranks
+    (100, 8, 100), default geometry (800 or 10,000 output columns)."""
+    st = wide_tensor
+    ref, plan, in_ranks, facs = carried(st, mode, WIDE_CORE_RANKS, tiles={})
+    ncols = kron_cols(in_ranks)
+    got = ttmc_blocked_plain(plan, factors_from_numpy(facs, "cpu"), in_ranks).numpy()
+    assert got.shape == (ref.out_rows, cols_padded(ncols))
+    assert_cols_close(got[:, :ncols],
+                      jax_ttmc_plan_ref(ref, [jnp.asarray(f) for f in facs], in_ranks))
+    assert not got[:, ncols:].any()
