@@ -12,16 +12,18 @@ printing one JSON line:
   a  device   the card (nvidia-smi name and power limit), CUDA version
   b  build    nvcc build of every kernel, seconds, ptxas report
   c  check    kernel vs plain version on 3-, 4- and 5-mode presets (at rank
-              16 and at rank 256, which takes column slices) and on
-              every mode of the NELL-2-size tensor; CUDA vs CPU CP-ALS fits
-              on a small tensor; kernel, plain and sweep timings
+              16, at rank 256, and at tile_i 8,192, which take row parts)
+              and on every mode of the NELL-2-size tensor; CUDA vs CPU
+              CP-ALS fits on a small tensor; kernel, plain and sweep timings
   d  main     decompose(st, 16, format="cp", iters=5, seed=0) with the launch
               counters reset just before and read just after
   e  check    TTMc kernel vs plain version on 3-, 4- and 5-mode presets with
-              mixed core ranks, on a (200, 200, 200) tensor at core ranks
-              (100, 8, 100) and on every mode of the NELL-2-size tensor at
-              core ranks (16, 16, 16); CUDA vs CPU HOOI fits on a small
-              tensor; kernel, plain, sweep and sweep-part timings
+              mixed core ranks (also at tile_i 8,192), on a (200, 200, 200)
+              tensor at core ranks (100, 8, 100) and on every mode of the
+              NELL-2-size tensor at core ranks (16, 16, 16); CUDA vs CPU HOOI
+              fits on a small tensor; kernel, plain, sweep and sweep-part
+              timings, and the staged TTMc kernel it replaced
+              (scripts/probe_kernels/ttmc_pr16.cu) timed beside it
   f  main     decompose(st, (16, 16, 16), format="tucker", iters=5, seed=0)
               with the launch counters reset just before and read just after
   g  check    TT-core kernel vs plain version on 3-, 4- and 5-mode presets
@@ -39,6 +41,8 @@ Imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -53,6 +57,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.api import decompose  # noqa: E402
 from repro_torch.core.coo import frostt_like, synthetic_tensor  # noqa: E402
 from repro_torch.core.cp_als import fit_value  # noqa: E402
+from repro_torch.core.memctrl import CacheEngineConfig, MemoryControllerConfig  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
 from repro_torch.kernels.ops import _tt_bond_pairs, make_planned_cp_als  # noqa: E402
@@ -82,7 +87,13 @@ from repro_torch.tucker.hooi import (  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 
+ROOT = Path(__file__).resolve().parent
 RANK = 16
+# An output tile of 8,192 rows, which the MTTKRP and TTMc kernels take in
+# row parts; checked on the presets, not timed.
+BIG_TILE = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=8192))
+# The TTMc kernel that the current one replaced, built and timed beside it.
+EARLIER_TTMC = ROOT / "scripts" / "probe_kernels" / "ttmc_pr16.cu"
 # Widths that the kernels take in column slices or smaller steps, on the
 # presets (CP) and on WIDE_SHAPE (Tucker, TT): never shrunk to fit.
 WIDE_RANK = 256
@@ -229,6 +240,24 @@ def random_padded(plan, widths, gen: torch.Generator) -> list[torch.Tensor]:
     return [torch.randn((rows, w), generator=gen, device="cuda") for rows, w in zip(plan.in_rows, widths)]
 
 
+def start_nvcc(src: Path, lib: Path) -> subprocess.Popen:
+    """Start building `src` into `lib` (its headers from its own directory)."""
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+@contextlib.contextmanager
+def ttmc_library(lib: ctypes.CDLL):
+    """Make `ttmc_blocked` launch from `lib` inside the block."""
+    real = build.load
+    build.load = lambda name: lib if name == "ttmc" else real(name)
+    try:
+        yield
+    finally:
+        build.load = real
+
+
 def reset_launches() -> None:
     mttkrp_blocked.launches = 0
     ttmc_blocked.launches = 0
@@ -250,7 +279,11 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
+    earlier_lib = build.BUILD_DIR / "earlier" / "ttmc_pr16.so"
+    earlier = start_nvcc(EARLIER_TTMC, earlier_lib)  # beside build_all's nvcc processes
     libs = build.build_all()
+    out, _ = earlier.communicate()
+    check(earlier.returncode == 0, f"nvcc failed on {EARLIER_TTMC}:\n{out}")
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for lib in libs.values() if Path(str(lib) + ".log").is_file()
              for ln in Path(str(lib) + ".log").read_text().splitlines()
@@ -259,17 +292,19 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rp = rank_padded(RANK)
-    presets, wide = [], []
+    presets, wide, big = [], [], []
     for preset in PRESETS:
         st = frostt_like(preset)
-        for rank, out in ((RANK, presets), (WIDE_RANK, wide)):
-            ws = make_planned_cp_als(st, rank, device="cuda")
+        for rank, cfg, out in ((RANK, None, presets), (WIDE_RANK, None, wide), (RANK, BIG_TILE, big)):
+            ws = make_planned_cp_als(st, rank, cfg=cfg, device="cuda")
             for m in range(st.nmodes):
                 plan = ws.plan_for(m)
                 facs = random_padded(plan, [rank_padded(rank)] * plan.n_in, gen)
-                out.append({"preset": preset, "rank": rank, "mode": m, "n_in": plan.n_in,
+                out.append({"preset": preset, "rank": rank, "tile_i": plan.tile_i, "mode": m,
+                            "n_in": plan.n_in,
                             **check_kernel(mttkrp_blocked, mttkrp_blocked_plain, plan, facs,
-                                           tol=TOL_PRESET, what=f"{preset} rank {rank} mode {m}")})
+                                           tol=TOL_PRESET,
+                                           what=f"{preset} rank {rank} tile_i {plan.tile_i} mode {m}")})
             del ws
 
     tiny = frostt_like("tiny")
@@ -315,7 +350,8 @@ def main() -> int:
     # d's peak device memory counts only what decompose holds.
     del ws, plan, facs, lam, true, idx, val, norm_x_sq, init
     torch.cuda.empty_cache()
-    emit({"phase": "c", "presets": presets, "wide": wide, "tiny_fit_gap_cuda_cpu": fit_gap,
+    emit({"phase": "c", "presets": presets, "wide": wide, "tile_i_8192": big,
+          "tiny_fit_gap_cuda_cpu": fit_gap,
           "nell2_modes": modes, "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
 
     torch.cuda.reset_peak_memory_stats()
@@ -342,7 +378,7 @@ def main() -> int:
 
     del state
     torch.cuda.empty_cache()
-    tucker = tucker_phases(st, gen)
+    tucker = tucker_phases(st, gen, ctypes.CDLL(str(earlier_lib)))
     torch.cuda.empty_cache()
     tt = tt_phases(st, gen)
 
@@ -367,19 +403,23 @@ def main() -> int:
     return 0
 
 
-def tucker_phases(st, gen: torch.Generator) -> dict:
-    """Phases e and f on the NELL-2-size tensor `st`; returns the TTMc
-    kernel's entry of the `kernels` line."""
-    presets = []
+def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> dict:
+    """Phases e and f on the NELL-2-size tensor `st`; `earlier` is the
+    library of the TTMc kernel the current one replaced, timed beside it.
+    Returns the TTMc kernel's entry of the `kernels` line."""
+    presets, big = [], []
     for preset, core_ranks in PRESET_CORE_RANKS.items():
         small = frostt_like(preset)
-        ws = make_planned_tucker(small, core_ranks, device="cuda")
-        for m, op in ws.ops.items():
-            facs = random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen)
-            presets.append({"preset": preset, "mode": m, "in_ranks": list(op.in_ranks),
-                            **check_kernel(ttmc_blocked, ttmc_blocked_plain, op.plan, facs,
-                                           op.in_ranks, tol=TOL_PRESET, what=f"{preset} mode {m}")})
-        del ws
+        for cfg, out in ((None, presets), (BIG_TILE, big)):
+            ws = make_planned_tucker(small, core_ranks, cfg=cfg, device="cuda")
+            for m, op in ws.ops.items():
+                facs = random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen)
+                out.append({"preset": preset, "tile_i": op.plan.tile_i, "mode": m,
+                            "in_ranks": list(op.in_ranks),
+                            **check_kernel(ttmc_blocked, ttmc_blocked_plain, op.plan, facs, op.in_ranks,
+                                           tol=TOL_PRESET,
+                                           what=f"{preset} tile_i {op.plan.tile_i} mode {m}")})
+            del ws
     wide_st = synthetic_tensor(WIDE_SHAPE, WIDE_NNZ, seed=0, skew=WIDE_SKEW)
     ws = make_planned_tucker(wide_st, WIDE_CORE_RANKS, device="cuda")
     wide = []
@@ -411,9 +451,16 @@ def tucker_phases(st, gen: torch.Generator) -> dict:
         errs = check_kernel(ttmc_blocked, ttmc_blocked_plain, plan, facs, op.in_ranks,
                             tol=TOL_FULL, what=f"NELL-2 TTMc mode {m}")
         bound_ms, bound_by = ttmc_bound(st.shape, st.nnz, m, CORE_RANKS)
+        # The current kernel and the one it replaced in turns: now, earlier,
+        # now, earlier; the least of each.
+        now_ms, earlier_ms = [], []
+        for _ in range(2):
+            now_ms.append(cuda_ms(lambda: ttmc_blocked(plan, facs, op.in_ranks), KERNEL_REPS))
+            with ttmc_library(earlier):
+                earlier_ms.append(cuda_ms(lambda: ttmc_blocked(plan, facs, op.in_ranks), KERNEL_REPS))
         modes.append({
             "mode": m, "in_ranks": list(op.in_ranks), "cols": op.out_cols, **errs,
-            "ms": cuda_ms(lambda: ttmc_blocked(plan, facs, op.in_ranks), KERNEL_REPS),
+            "ms": min(now_ms), "earlier_kernel_ms": min(earlier_ms),
             "plain_ms": cuda_ms(lambda: ttmc_blocked_plain(plan, facs, op.in_ranks), TTMC_PLAIN_REPS),
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
@@ -435,7 +482,8 @@ def tucker_phases(st, gen: torch.Generator) -> dict:
     kernel_ms = sum(x["ms"] for x in modes)
     del ws, op, plan, facs, in_facs, ys, u_last, norm_x_sq, init
     torch.cuda.empty_cache()
-    emit({"phase": "e", "presets": presets, "wide": wide, "tiny_fit_gap_cuda_cpu": fit_gap,
+    emit({"phase": "e", "presets": presets, "wide": wide, "tile_i_8192": big,
+          "tiny_fit_gap_cuda_cpu": fit_gap, "earlier_kernel": str(EARLIER_TTMC.relative_to(ROOT)),
           "nell2_core_ranks": list(CORE_RANKS), "nell2_modes": modes, "plan_build_s": plan_build_s,
           "sweep_ms": sweep_ms, "kernel_ms": kernel_ms, "factor_update_ms": factor_ms,
           "core_fit_ms": core_fit_ms,

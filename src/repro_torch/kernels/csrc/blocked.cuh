@@ -1,13 +1,10 @@
 // What the row-sorting kernels on the BlockPlan layout share (csrc/ttmc.cu,
 // csrc/ttcore.cu): the CTA shape, the CTA-wide scan of the counting sort,
 // the shared-memory budget, and the launch over ranges of plan blocks with
-// `slices` CTAs each; for the TTMc kernel also the column slice and the
-// tile's flush (the TT-core kernel splits its tile its own way).  Each kernel
-// library is one translation unit that includes this header once, so
-// everything here has internal linkage.
+// `slices` CTAs each.  Each kernel library is one translation unit that
+// includes this header once, so everything here has internal linkage.
 //
-// launch_ranges needs Args with nblocks and slices; flush_tile also out,
-// tile_i, ldo and slice.
+// launch_ranges needs Args with nblocks and slices.
 
 #pragma once
 
@@ -18,27 +15,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = kThreads;   // most slots compacted per step, one per thread
-constexpr int kMaxSlice = 64;      // columns per CTA
-constexpr int kMinSlice = 8;       // at most 32 segments per step
+constexpr int kMinSlice = 8;       // the narrowest column slice
 constexpr int kBlocksPerCta = 64;  // bounds a tile element's float32 sum chain
 constexpr int kWarps = kThreads / 32;
-
-// Add the slice's non-zero partial sums to the output and zero the tile.
-// Each thread reads and clears only its own elements.
-template <class Args>
-__device__ __forceinline__ void flush_tile(const Args& a, float* s_tile, int tile) {
-  const int elems = a.tile_i * a.slice;
-  float* dst = a.out + static_cast<int64_t>(tile) * a.tile_i * a.ldo +
-               static_cast<int64_t>(blockIdx.x % a.slices) * a.slice;
-  for (int i = threadIdx.x; i < elems; i += kThreads) {
-    const float x = s_tile[i];
-    s_tile[i] = 0.0f;
-    if (x != 0.0f) {  // columns past ncols are never added to, so stay 0
-      const int r = i / a.slice;
-      atomicAdd(dst + static_cast<int64_t>(r) * a.ldo + (i - r * a.slice), x);
-    }
-  }
-}
 
 // Exclusive prefix sum of s[0..n) in place, by all threads of the CTA; returns
 // the total.  Each thread scans a contiguous run of entries; the runs' sums
@@ -72,16 +51,6 @@ __device__ int exclusive_scan(int* s, int n, int* s_warp) {
   }
   __syncthreads();
   return total;
-}
-
-// The column slice for `ncols` output columns: the least power of two in
-// [kMinSlice, kMaxSlice] that holds them, else kMaxSlice.  A launch halves
-// it (down to kMinSlice) only where a tile_i x slice tile would leave no
-// room for the slots of a step.
-inline int slice_for(long long ncols) {
-  int slice = kMinSlice;
-  while (slice < kMaxSlice && slice < ncols) slice *= 2;
-  return slice;
 }
 
 // Bytes of dynamic shared memory a CTA of `kernel` may take on `device`:

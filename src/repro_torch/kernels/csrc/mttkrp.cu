@@ -20,12 +20,15 @@
 //   * The output tile being summed lives in shared memory, as the Pallas
 //     kernel keeps its accumulator in VMEM: tile_i x ld floats, 16 KB at
 //     the default tile_i = 256 and rank 16.  Where that does not fit in a
-//     CTA (rank above about 200 at tile_i = 256), a grid dimension splits
-//     the columns into `slices` of `slice` columns (a multiple of 4, chosen
-//     at launch from the shared-memory budget), and each CTA keeps a
-//     tile_i x slice tile; the slices of one block range run side by side,
-//     so they re-read the same stream and factor rows from L2.  At rank 16
-//     there is one slice.  Contributions go to the tile with
+//     CTA (rank above about 200 at tile_i = 256, or a tile_i above about
+//     3,500 at rank 16), a grid dimension splits the tile into `parts` of
+//     `rows` rows, chosen at launch from the shared-memory budget: each CTA
+//     keeps only the slots whose row falls in its part, so every product
+//     is still taken once.  Only where not even one row of ld floats fits
+//     are the columns split too, into `col_slices` of `slice` columns (a
+//     multiple of 4).  The CTAs of one block range run side by side, so
+//     they re-read the same stream from L2.  At rank 16 and the default
+//     tile_i there is one part and one slice.  Contributions go to the tile with
 //     shared-memory atomics; when the range moves to the next output tile,
 //     and at its end, the non-zero partial sums are added to the output in
 //     device memory with one global atomic each.  Blocks are sorted by
@@ -76,17 +79,21 @@ struct Args {
   int64_t nblocks;
   int blk;
   int tile_i;
-  int ld;      // row stride of every factor and of out: the padded rank
-  int slice;   // columns per CTA: ld, or a multiple of 4 below it
-  int slices;  // column slices: ceil(ld / slice)
+  int ld;          // row stride of every factor and of out: the padded rank
+  int rows;        // tile rows per CTA: ceil(tile_i / parts)
+  int parts;       // row parts of an output tile
+  int slice;       // columns per CTA: ld, or a multiple of 4 below it
+  int col_slices;  // column slices: ceil(ld / slice)
+  int slices;      // CTAs per block range: parts * col_slices
 };
 
-// Add the tile's non-zero partial sums to the output and zero the tile.
-// Each thread reads and clears only its own elements.
-__device__ __forceinline__ void flush_tile(const Args& a, float* s_tile, int tile, int c_lo,
-                                           int width) {
-  const int elems = a.tile_i * width;
-  float* dst = a.out + static_cast<int64_t>(tile) * a.tile_i * a.ld + c_lo;
+// Add the tile's non-zero partial sums to the output rows row0.. of output
+// tile `tile` (rows_here of them), columns c_lo.., and zero the tile.  Each
+// thread reads and clears only its own elements.
+__device__ __forceinline__ void flush_tile(const Args& a, float* s_tile, int tile, int row0, int rows_here,
+                                           int c_lo, int width) {
+  const int elems = rows_here * width;
+  float* dst = a.out + (static_cast<int64_t>(tile) * a.tile_i + row0) * a.ld + c_lo;
   for (int i = threadIdx.x; i < elems; i += kThreads) {
     const float x = s_tile[i];
     s_tile[i] = 0.0f;
@@ -97,9 +104,12 @@ __device__ __forceinline__ void flush_tile(const Args& a, float* s_tile, int til
   }
 }
 
-template <int N_IN>
+// PARTS: the tile is split into row parts (else the CTA takes every row, and
+// the kernel keeps no part bounds live: the single-part case stays as lean
+// as before parts existed).
+template <int N_IN, bool PARTS>
 __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) {
-  extern __shared__ float s_tile[];  // tile_i x width partial sums
+  extern __shared__ float s_tile[];  // rows x width partial sums
   // The current chunk's non-zeros, compacted: value, row offset within the
   // tile and one input row offset per input mode (offsets times ld).
   __shared__ float s_val[kThreads];
@@ -107,12 +117,16 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
   __shared__ int64_t s_in[N_IN][kThreads];
   __shared__ int s_count;
 
-  // CTA b takes column slice b % slices of block range b / slices.
+  // CTA b takes (row part, column slice) b % slices of block range
+  // b / slices.
   const int64_t range = blockIdx.x / a.slices;
   const int64_t ranges = gridDim.x / a.slices;
-  const int c_lo = static_cast<int>(blockIdx.x % a.slices) * a.slice;
+  const int sub = static_cast<int>(blockIdx.x % a.slices);
+  const int row0 = PARTS ? (sub / a.col_slices) * a.rows : 0;  // first tile row of this CTA
+  const int rows_here = !PARTS ? a.tile_i : a.tile_i - row0 < a.rows ? a.tile_i - row0 : a.rows;
+  const int c_lo = (PARTS ? sub % a.col_slices : sub) * a.slice;
   const int width = a.ld - c_lo < a.slice ? a.ld - c_lo : a.slice;  // this CTA's columns
-  for (int i = threadIdx.x; i < a.tile_i * width; i += kThreads) s_tile[i] = 0.0f;
+  for (int i = threadIdx.x; i < rows_here * width; i += kThreads) s_tile[i] = 0.0f;
 
   const int64_t per = (a.nblocks + ranges - 1) / ranges;
   const int64_t b_begin = range * per;
@@ -123,7 +137,9 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
     if (tile != cur_tile) {
       // Every thread passed the previous chunk's closing barrier, so the
       // tile holds all of the previous run's contributions.
-      if (cur_tile >= 0) flush_tile(a, s_tile, cur_tile, c_lo, width);
+      if (cur_tile >= 0) {
+        flush_tile(a, s_tile, cur_tile, row0, rows_here, c_lo, width);
+      }
       cur_tile = tile;
     }
     int64_t in_base[N_IN];
@@ -138,10 +154,11 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
       if (z < a.blk) {
         const int64_t slot = b * a.blk + z;
         const float v = a.vals[slot];
-        if (v != 0.0f) {
+        const int row = PARTS && v != 0.0f ? a.iloc[slot] - row0 : 0;  // this CTA's rows only
+        if (v != 0.0f && (!PARTS || (row >= 0 && row < rows_here))) {
           const int k = atomicAdd(&s_count, 1);
           s_val[k] = v;
-          s_row[k] = a.iloc[slot] * width;
+          s_row[k] = (PARTS ? row : a.iloc[slot]) * width;
 #pragma unroll
           for (int n = 0; n < N_IN; ++n) {
             s_in[n][k] = (in_base[n] + a.in_locs[n][slot]) * a.ld + c_lo;
@@ -163,19 +180,22 @@ __global__ void __launch_bounds__(kThreads) mttkrp_blocked_kernel(const Args a) 
       __syncthreads();  // the compacted list and the tile are complete
     }
   }
-  if (cur_tile >= 0) flush_tile(a, s_tile, cur_tile, c_lo, width);
+  if (cur_tile >= 0) {
+    flush_tile(a, s_tile, cur_tile, row0, rows_here, c_lo, width);
+  }
 }
 
-// Choose the column slice and launch: one slice when the whole tile_i x ld
-// tile fits beside the kernel's static arrays, else the fewest slices of a
-// multiple of 4 columns (at least min(ld, kMinSlice)) that fit; one CTA per
-// (block range, slice), at most one wave of block ranges.  Returns 0, -1
-// when not even the narrowest slice fits, else a cudaError_t.
+// Shape the tile and launch: the whole tile_i x ld tile when it fits beside
+// the kernel's static arrays, else the fewest row parts (a power of two)
+// whose rows of ld floats fit, and only where not one row fits, single rows
+// in the fewest column slices of a multiple of 4 columns that fit; one CTA
+// per (block range, part, slice), at most one wave of block ranges.
+// Returns 0, -1 when not even one row of the narrowest slice fits, else a
+// cudaError_t.
 template <int N_IN>
 int launch(Args a, int device, cudaStream_t stream) {
-  auto kernel = mttkrp_blocked_kernel<N_IN>;
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  cudaFuncAttributes attr;  // the static arrays, the same with or without parts
+  cudaError_t err = cudaFuncGetAttributes(&attr, mttkrp_blocked_kernel<N_IN, false>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int optin = 0, sms = 0;
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
@@ -183,18 +203,30 @@ int launch(Args a, int device, cudaStream_t stream) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long avail = (static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes)) /
-                          static_cast<long long>(sizeof(float)) / a.tile_i;  // columns that fit
-  const int narrowest = a.ld < kMinSlice ? a.ld : kMinSlice;
-  if (avail < narrowest) return -1;
-  if (avail >= a.ld) {
+                          static_cast<long long>(sizeof(float));  // floats that fit
+  a.parts = 1;
+  while (a.parts < a.tile_i && static_cast<long long>((a.tile_i + a.parts - 1) / a.parts) * a.ld > avail) {
+    a.parts *= 2;
+  }
+  if (a.parts > a.tile_i) a.parts = a.tile_i;
+  a.rows = (a.tile_i + a.parts - 1) / a.parts;
+  a.parts = (a.tile_i + a.rows - 1) / a.rows;
+  if (static_cast<long long>(a.rows) * a.ld <= avail) {
     a.slice = a.ld;
-  } else {
+  } else {  // one row per part, and not even that fits: column slices
+    const int narrowest = a.ld < kMinSlice ? a.ld : kMinSlice;
+    if (avail < narrowest) return -1;
     const int widest = static_cast<int>(avail) / 4 * 4;
     const int slices = (a.ld + widest - 1) / widest;
     a.slice = ((a.ld + slices - 1) / slices + 3) / 4 * 4;
   }
-  a.slices = (a.ld + a.slice - 1) / a.slice;
-  const size_t smem = static_cast<size_t>(a.tile_i) * a.slice * sizeof(float);
+  a.col_slices = (a.ld + a.slice - 1) / a.slice;
+  if (static_cast<long long>(a.parts) * a.col_slices > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.slices = a.parts * a.col_slices;
+  const auto kernel = a.parts > 1 ? mttkrp_blocked_kernel<N_IN, true> : mttkrp_blocked_kernel<N_IN, false>;
+  const size_t smem = static_cast<size_t>(a.rows) * a.slice * sizeof(float);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -213,9 +245,9 @@ int launch(Args a, int device, cudaStream_t stream) {
 }  // namespace
 
 // Launch on `stream`.  The pointer arrays hold n_in device pointers each,
-// in plan.in_modes order.  Returns 0 on success, -1 when a tile_i x
-// min(ld, kMinSlice) output tile does not fit in a CTA's shared memory, else
-// a cudaError_t.
+// in plan.in_modes order.  Any tile_i and ld run.  Returns 0 on success,
+// -1 when not even one row of min(ld, kMinSlice) floats fits in a CTA's
+// shared memory (it always does on sm_90), else a cudaError_t.
 extern "C" int mttkrp_blocked_launch(
     const float* vals, const int* iloc, const int* block_it,
     const int* const* in_locs, const int* const* block_in,

@@ -135,20 +135,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-#: The launch's return code when not even a tile_i x 8-column slice of the
-#: output tile fits in one CTA's shared memory.
-_SMEM_TOO_SMALL = -1
-
-
 def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torch.Tensor:
     """MTTKRP on `plan` with one padded factor per input mode (plan.in_modes
     order, each with >= plan.in_rows[n] rows and one shared width).
 
     CUDA tensors launch the Hopper kernel on the current stream (and count
-    one launch); CPU tensors run `mttkrp_blocked_plain`.  Any width runs:
-    the kernel splits wide rows into column slices.  Raises ValueError only
-    when tile_i is so large that a tile_i x 8 slice does not fit in a CTA.  Returns
-    (plan.out_rows, factor width) float32, zero wherever no non-zero lands."""
+    one launch); CPU tensors run `mttkrp_blocked_plain`.  Any tile_i and
+    width run: the kernel splits a tile too large for a CTA into row parts,
+    and a row too wide for one into column slices.  Raises RuntimeError if
+    the launch fails.  Returns (plan.out_rows, factor width) float32, zero
+    wherever no non-zero lands."""
     dev = plan.vals.device
     if dev.type == "cpu":
         return mttkrp_blocked_plain(plan, factors_pad)
@@ -168,11 +164,6 @@ def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torc
         (ctypes.c_int * n_in)(*plan.in_tiles), n_in, plan.nblocks, plan.blk,
         plan.tile_i, ld, out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err == _SMEM_TOO_SMALL:
-        raise ValueError(
-            f"mttkrp_blocked: an output tile of tile_i = {plan.tile_i} rows by "
-            f"{min(ld, 8)} columns does not fit in one CTA's shared-memory budget; "
-            f"choose a smaller tile_i")
     if err != 0:
         raise RuntimeError(f"mttkrp_blocked kernel launch failed: cudaError_t {err}")
     mttkrp_blocked.launches += 1

@@ -104,11 +104,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-#: The launch's return code when not even one staged slot fits beside a
-#: tile_i x 8 output tile in one CTA's shared memory.
-_SMEM_TOO_SMALL = -1
-
-
 def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
                  in_ranks: Sequence[int]) -> torch.Tensor:
     """TTMc on `plan` with one padded factor per input mode (plan.in_modes
@@ -117,9 +112,11 @@ def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
 
     CUDA tensors launch the Hopper kernel on the current stream (one launch,
     counted, whatever the output width); CPU tensors run
-    `ttmc_blocked_plain`.  Any ranks run at tile_i = 256: the kernel sizes
-    its steps from the shared-memory budget.  Returns (plan.out_rows, cols_padded(P)) float32,
-    zero wherever no non-zero lands and in every padded lane."""
+    `ttmc_blocked_plain`.  Any tile_i and ranks run: the kernel splits a
+    tile into row parts and a row wider than its registers hold into column
+    slices.  Raises RuntimeError if the launch fails.  Returns
+    (plan.out_rows, cols_padded(P)) float32, zero wherever no non-zero lands
+    and in every padded lane."""
     dev = plan.vals.device
     if dev.type == "cpu":
         return ttmc_blocked_plain(plan, factors_pad, in_ranks)
@@ -143,11 +140,6 @@ def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
         plan.nblocks, plan.blk, plan.tile_i, out.shape[1], out.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err == _SMEM_TOO_SMALL:
-        raise ValueError(
-            f"ttmc_blocked: an output tile of tile_i = {plan.tile_i} rows by 8 columns leaves "
-            f"no room in one CTA's shared-memory budget for one slot's staged factor lanes of "
-            f"in_ranks {in_ranks}; choose a smaller tile_i")
     if err != 0:
         raise RuntimeError(f"ttmc_blocked kernel launch failed: cudaError_t {err}")
     ttmc_blocked.launches += 1

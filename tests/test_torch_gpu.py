@@ -1,8 +1,10 @@
 """Port tests that need the card: the CUDA MTTKRP, TTMc and TT-core kernels
 against their plain versions (also at the wide ranks that need column
 slices or smaller steps: CP rank 256, Tucker (100, 8, 100), TT (24, 24),
-(40, 48) and (100, 100)), and the CP-ALS, Tucker HOOI and TT-ALS paths
-on CUDA against the CPU path.  Marked `gpu`;
+(40, 48) and (100, 100); at tile_i = 8,192, which splits the MTTKRP and
+TTMc tiles into row parts; and on a tensor whose hot rows fill whole block
+ranges), and the CP-ALS, Tucker HOOI and TT-ALS paths on CUDA against the
+CPU path.  Marked `gpu`;
 they skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
@@ -45,6 +47,11 @@ GEOMETRIES = {
     "small_tiles_wide_blocks": MemoryControllerConfig(
         cache=CacheEngineConfig(tile_i=8, tile_j=16, tile_k=4), dma=DMAEngineConfig(blk=640)),
 }
+
+
+# An output tile of 8,192 rows: more than a CTA holds at rank 16 (MTTKRP) or
+# in its row counts (TTMc), so both kernels split it into row parts.
+BIG_TILE = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=8192))
 
 
 def wide_tensor():
@@ -94,6 +101,14 @@ def test_kernel_matches_plain_version_at_rank_256(cuda, preset, geometry):
     check_mttkrp(cuda, frostt_like(preset), 256, GEOMETRIES[geometry])
 
 
+@pytest.mark.parametrize("rank", [16, 256])
+@pytest.mark.parametrize("preset", ["tiny", "4d_small"])
+def test_kernel_at_tile_i_8192(cuda, preset, rank):
+    """tile_i = 8,192: the tile splits into row parts (and at rank 256 a row
+    part holds fewer rows), each CTA keeping only its rows' slots."""
+    check_mttkrp(cuda, frostt_like(preset), rank, BIG_TILE)
+
+
 def test_cuda_fits_match_cpu(cuda):
     st = frostt_like("tiny")
     gen = torch.Generator(device=cuda).manual_seed(1)
@@ -108,7 +123,7 @@ def test_cuda_fits_match_cpu(cuda):
 TUCKER_RANKS = {
     "tiny": [(3, 5, 2), (16, 16, 16)],
     "4d_small": [(5, 4, 6, 3)],
-    "5d_small": [(3, 4, 2, 5, 3)],
+    "5d_small": [(3, 4, 2, 5, 3), (4, 4, 4, 4, 4)],
 }
 
 
@@ -144,6 +159,23 @@ def test_ttmc_kernel_at_wide_ranks(cuda, geometry):
     than 256 slots fit in a step beside the tile; modes 0 and 2 have 800
     output columns and mode 1 10,000."""
     check_ttmc(cuda, wide_tensor(), (100, 8, 100), GEOMETRIES[geometry])
+
+
+@pytest.mark.parametrize("core_ranks", [(3, 5, 2), (16, 16, 16)])
+@pytest.mark.parametrize("preset", ["tiny", "4d_small"])
+def test_ttmc_kernel_at_tile_i_8192(cuda, preset, core_ranks):
+    """tile_i = 8,192: the TTMc kernel's row counts split into two row parts."""
+    if preset == "4d_small":
+        core_ranks = core_ranks + core_ranks[:1]
+    check_ttmc(cuda, frostt_like(preset), core_ranks, BIG_TILE)
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_ttmc_kernel_on_hot_rows(cuda, geometry):
+    """Zipf skew 3 on 2,000 rows: a few rows hold most of every block range,
+    so their runs are split over many windows and warps."""
+    st = synthetic_tensor((2_000, 300, 400), 50_000, seed=0, skew=3.0)
+    check_ttmc(cuda, st, (16, 16, 16), GEOMETRIES[geometry])
 
 
 def test_cuda_tucker_fits_match_cpu(cuda):

@@ -1,6 +1,7 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-`src/repro_torch/` or `chip_smoke.py`; and its device contract — CUDA by
-default, an error (not a silent CPU run) when there is no GPU."""
+`src/repro_torch/`, `chip_smoke.py` or the port's probe scripts; and its
+device contract — CUDA by default, an error (not a silent CPU run) when
+there is no GPU."""
 import ast
 import os
 import subprocess
@@ -22,7 +23,8 @@ from repro_torch.tucker import make_planned_tucker, tucker_hooi
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"] + sorted(
+    (ROOT / "scripts").glob("torch_*_probe.py"))
 
 
 def imported_modules(path: Path) -> list[str]:

@@ -19,6 +19,7 @@ from repro.kernels.workspace import _visited_row_mask
 from repro_torch.convert import factors_from_numpy, plan_from_numpy
 from repro_torch.core.coo import SparseTensor
 from repro_torch.core.mttkrp import mttkrp_approach1
+from repro_torch.core.remap import plan_blocks
 from repro_torch.kernels.mttkrp import (
     mttkrp_blocked,
     mttkrp_blocked_plain,
@@ -27,6 +28,7 @@ from repro_torch.kernels.mttkrp import (
 )
 from repro_torch.kernels.ops import make_planned_mttkrp
 from repro_torch.kernels.ref import mttkrp_plan_ref, mttkrp_ref
+from test_torch_remap import assert_plans_equal
 
 RANK = 4
 # float32 sums over the same terms taken in another order (the Pallas
@@ -35,10 +37,10 @@ RTOL = ATOL = 1e-5
 TILES = dict(tile_i=8, tile_j=16, tile_k=4, blk=16)
 
 
-def carried(st, mode):
-    """The reference plan, the same plan in the port, and padded factors
-    (numpy, made from a seed) for its input modes."""
-    ref = jax_plan_blocks(st, mode, **TILES)
+def carried(st, mode, tiles=TILES):
+    """The reference plan (small tiles, or `tiles`), the same plan in the
+    port, and padded factors (numpy, made from a seed) for its input modes."""
+    ref = jax_plan_blocks(st, mode, **tiles)
     plan = plan_from_numpy({f.name: getattr(ref, f.name) for f in dataclasses.fields(ref)}, "cpu")
     rng = np.random.default_rng(100 + mode)
     rp = rank_padded(RANK)
@@ -193,4 +195,27 @@ def test_plain_matches_plan_ref_at_rank_256(preset):
         got = mttkrp_blocked_plain(plan, factors_from_numpy(facs, "cpu")).numpy()
         want = np.asarray(jax_mttkrp_plan_ref(ref, [jnp.asarray(f) for f in facs], WIDE_RANK))
         assert_cols_close(got, want)
+        assert not got[st.shape[mode]:].any()
+
+
+# tile_i = 8,192: more rows than a CUDA thread block holds in one rank-16
+# output tile, so the card's kernel splits the tile into row parts; the
+# reference takes any tile_i.
+BIG_TILES = dict(TILES, tile_i=8192)
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d"])
+def test_plain_matches_pallas_interpret_at_tile_i_8192(request, fixture):
+    """Every mode at tile_i = 8,192: the port builds the reference's plan bit
+    for bit, and its plain version on that plan matches the interpret-mode
+    Pallas kernel on the same numpy factors."""
+    st = request.getfixturevalue(fixture)
+    for mode in range(st.nmodes):
+        ref, _, facs = carried(st, mode, BIG_TILES)
+        plan = plan_blocks(SparseTensor(st.indices, st.values, st.shape), mode, device="cpu", **BIG_TILES)
+        assert_plans_equal(ref, plan)
+        got = mttkrp_blocked_plain(plan, factors_from_numpy(facs, "cpu")).numpy()
+        assert got.shape == (8192, rank_padded(RANK))
+        np.testing.assert_allclose(got, pallas_interpret(ref, facs), rtol=RTOL, atol=ATOL)
+        assert not got[:, RANK:].any()
         assert not got[st.shape[mode]:].any()

@@ -19,11 +19,13 @@ from repro.kernels.ttm_pallas import ttmc_pallas_call
 from repro.kernels.workspace import _visited_row_mask
 from repro_torch.convert import factors_from_numpy, plan_from_numpy
 from repro_torch.core.coo import SparseTensor
+from repro_torch.core.remap import plan_blocks
 from repro_torch.kernels.mttkrp import mttkrp_blocked, rank_padded
 from repro_torch.kernels.ops import make_planned_ttmc
 from repro_torch.kernels.ref import ttmc_plan_ref, ttmc_ref
 from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import cols_padded, kron_cols, ttmc_blocked, ttmc_blocked_plain
+from test_torch_remap import assert_plans_equal
 
 # Largest error allowed relative to each output column's max: float32 sums
 # over the same terms taken in another order (the Pallas kernel's one-hot
@@ -231,3 +233,29 @@ def test_plain_matches_plan_ref_at_wide_ranks(wide_tensor, mode):
     assert_cols_close(got[:, :ncols],
                       jax_ttmc_plan_ref(ref, [jnp.asarray(f) for f in facs], in_ranks))
     assert not got[:, ncols:].any()
+
+
+# tile_i = 8,192: more rows than the card's kernel keeps counts for in one
+# thread block, so it splits the tile into row parts; the reference takes
+# any tile_i.
+BIG_TILES = dict(TILES, tile_i=8192)
+
+
+@pytest.mark.parametrize("fixture,ranks", [("tiny_tensor", "mixed"), ("tensor4d", "mixed"),
+                                           ("tensor5d", "equal")])
+def test_plain_matches_pallas_interpret_at_tile_i_8192(request, fixture, ranks):
+    """Every mode at tile_i = 8,192: the port builds the reference's plan bit
+    for bit, and its plain version on that plan matches the interpret-mode
+    Pallas kernel on the same numpy factors; padded lanes and rows zero."""
+    st = request.getfixturevalue(fixture)
+    core_ranks = CORE_RANKS[fixture][ranks]
+    for mode in range(st.nmodes):
+        ref, _, in_ranks, facs = carried(st, mode, core_ranks, tiles=BIG_TILES)
+        plan = plan_blocks(SparseTensor(st.indices, st.values, st.shape), mode, device="cpu", **BIG_TILES)
+        assert_plans_equal(ref, plan)
+        ncols = kron_cols(in_ranks)
+        got = ttmc_blocked_plain(plan, factors_from_numpy(facs, "cpu"), in_ranks).numpy()
+        assert got.shape == (8192, cols_padded(ncols))
+        assert_cols_close(got[:, :ncols], pallas_interpret(ref, facs, in_ranks))
+        assert not got[:, ncols:].any()
+        assert not got[st.shape[mode]:].any()
