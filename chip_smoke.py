@@ -14,7 +14,9 @@ printing one JSON line:
   c  check    kernel vs plain version on 3-, 4- and 5-mode presets (at rank
               16, at rank 256, and at tile_i 8,192, which take row parts)
               and on every mode of the NELL-2-size tensor; CUDA vs CPU
-              CP-ALS fits on a small tensor; kernel, plain and sweep timings
+              CP-ALS fits on a small tensor; kernel, plain and sweep timings,
+              and the MTTKRP kernel it replaced
+              (scripts/probe_kernels/mttkrp_pr17.cu) timed beside it
   d  main     decompose(st, 16, format="cp", iters=5, seed=0) with the launch
               counters reset just before and read just after
   e  check    TTMc kernel vs plain version on 3-, 4- and 5-mode presets with
@@ -92,7 +94,9 @@ RANK = 16
 # An output tile of 8,192 rows, which the MTTKRP and TTMc kernels take in
 # row parts; checked on the presets, not timed.
 BIG_TILE = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=8192))
-# The TTMc kernel that the current one replaced, built and timed beside it.
+# The MTTKRP and TTMc kernels that the current ones replaced, built and
+# timed beside them.
+EARLIER_MTTKRP = ROOT / "scripts" / "probe_kernels" / "mttkrp_pr17.cu"
 EARLIER_TTMC = ROOT / "scripts" / "probe_kernels" / "ttmc_pr16.cu"
 # Widths that the kernels take in column slices or smaller steps, on the
 # presets (CP) and on WIDE_SHAPE (Tucker, TT): never shrunk to fit.
@@ -248,10 +252,11 @@ def start_nvcc(src: Path, lib: Path) -> subprocess.Popen:
 
 
 @contextlib.contextmanager
-def ttmc_library(lib: ctypes.CDLL):
-    """Make `ttmc_blocked` launch from `lib` inside the block."""
+def kernel_library(kernel: str, lib: ctypes.CDLL):
+    """Make the wrapper of `kernel` ("mttkrp", "ttmc") launch from `lib`
+    inside the block."""
     real = build.load
-    build.load = lambda name: lib if name == "ttmc" else real(name)
+    build.load = lambda name: lib if name == kernel else real(name)
     try:
         yield
     finally:
@@ -279,11 +284,14 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.perf_counter()
-    earlier_lib = build.BUILD_DIR / "earlier" / "ttmc_pr16.so"
-    earlier = start_nvcc(EARLIER_TTMC, earlier_lib)  # beside build_all's nvcc processes
+    earlier_libs = {src: build.BUILD_DIR / "earlier" / src.with_suffix(".so").name
+                    for src in (EARLIER_MTTKRP, EARLIER_TTMC)}
+    # Beside build_all's nvcc processes.
+    earlier = {src: start_nvcc(src, lib) for src, lib in earlier_libs.items()}
     libs = build.build_all()
-    out, _ = earlier.communicate()
-    check(earlier.returncode == 0, f"nvcc failed on {EARLIER_TTMC}:\n{out}")
+    for src, proc in earlier.items():
+        out, _ = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on {src}:\n{out}")
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for lib in libs.values() if Path(str(lib) + ".log").is_file()
              for ln in Path(str(lib) + ".log").read_text().splitlines()
@@ -321,18 +329,29 @@ def main() -> int:
     ws = make_planned_cp_als(st, RANK, device="cuda")
     torch.cuda.synchronize()
     plan_build_s = time.perf_counter() - t0
+    earlier_mttkrp = ctypes.CDLL(str(earlier_libs[EARLIER_MTTKRP]))
     modes = []
     for m in range(st.nmodes):
         plan = ws.plan_for(m)
         facs = random_padded(plan, [rp] * plan.n_in, gen)
         errs = check_kernel(mttkrp_blocked, mttkrp_blocked_plain, plan, facs,
                             tol=TOL_FULL, what=f"NELL-2 mode {m}")
+        with kernel_library("mttkrp", earlier_mttkrp):
+            earlier_errs = check_kernel(mttkrp_blocked, mttkrp_blocked_plain, plan, facs,
+                                        tol=TOL_FULL, what=f"NELL-2 mode {m}, earlier kernel")
         bound_ms, bound_by = bound(st.shape, st.nnz, m, RANK)
+        # The current kernel and the one it replaced in turns: now, earlier,
+        # now, earlier; the least of each.
+        now_ms, earlier_ms = [], []
+        for _ in range(2):
+            now_ms.append(cuda_ms(lambda: mttkrp_blocked(plan, facs), KERNEL_REPS))
+            with kernel_library("mttkrp", earlier_mttkrp):
+                earlier_ms.append(cuda_ms(lambda: mttkrp_blocked(plan, facs), KERNEL_REPS))
         modes.append({
             "mode": m, "nblocks": plan.nblocks, "slots": plan.nblocks * plan.blk,
             "padding": plan.padding_fraction(), "output_tile_runs": plan.output_tile_runs(),
-            **errs,
-            "ms": cuda_ms(lambda: mttkrp_blocked(plan, facs), KERNEL_REPS),
+            **errs, "earlier_kernel_max_rel_err": earlier_errs["max_rel_err"],
+            "ms": min(now_ms), "earlier_kernel_ms": min(earlier_ms),
             "plain_ms": cuda_ms(lambda: mttkrp_blocked_plain(plan, facs), PLAIN_REPS),
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
@@ -351,7 +370,7 @@ def main() -> int:
     del ws, plan, facs, lam, true, idx, val, norm_x_sq, init
     torch.cuda.empty_cache()
     emit({"phase": "c", "presets": presets, "wide": wide, "tile_i_8192": big,
-          "tiny_fit_gap_cuda_cpu": fit_gap,
+          "tiny_fit_gap_cuda_cpu": fit_gap, "earlier_kernel": str(EARLIER_MTTKRP.relative_to(ROOT)),
           "nell2_modes": modes, "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
 
     torch.cuda.reset_peak_memory_stats()
@@ -373,12 +392,13 @@ def main() -> int:
           "gen_s": gen_s, "plan_build_s": plan_build_s, "decompose_s": decompose_s,
           "peak_device_bytes": torch.cuda.max_memory_allocated(), "fits": fits,
           "launches": launches, "sweep_ms": sweep_ms, "fit_ms": fit_ms,
-          "kernel_ms": [x["ms"] for x in modes], "plain_ms": [x["plain_ms"] for x in modes],
-          "bound_ms": [x["bound_ms"] for x in modes]})
+          "kernel_ms": [x["ms"] for x in modes],
+          "earlier_kernel_ms": [x["earlier_kernel_ms"] for x in modes],
+          "plain_ms": [x["plain_ms"] for x in modes], "bound_ms": [x["bound_ms"] for x in modes]})
 
     del state
     torch.cuda.empty_cache()
-    tucker = tucker_phases(st, gen, ctypes.CDLL(str(earlier_lib)))
+    tucker = tucker_phases(st, gen, ctypes.CDLL(str(earlier_libs[EARLIER_TTMC])))
     torch.cuda.empty_cache()
     tt = tt_phases(st, gen)
 
@@ -392,6 +412,8 @@ def main() -> int:
         "max_abs_err": max(x["max_abs_err"] for x in modes),
         "max_rel_err": max(x["max_rel_err"] for x in modes),
         "ms": sum(x["ms"] for x in modes),
+        "earlier_kernel": str(EARLIER_MTTKRP.relative_to(ROOT)),
+        "earlier_kernel_ms": sum(x["earlier_kernel_ms"] for x in modes),
         "plain_ms": sum(x["plain_ms"] for x in modes),
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
@@ -456,7 +478,7 @@ def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> dict:
         now_ms, earlier_ms = [], []
         for _ in range(2):
             now_ms.append(cuda_ms(lambda: ttmc_blocked(plan, facs, op.in_ranks), KERNEL_REPS))
-            with ttmc_library(earlier):
+            with kernel_library("ttmc", earlier):
                 earlier_ms.append(cuda_ms(lambda: ttmc_blocked(plan, facs, op.in_ranks), KERNEL_REPS))
         modes.append({
             "mode": m, "in_ranks": list(op.in_ranks), "cols": op.out_cols, **errs,

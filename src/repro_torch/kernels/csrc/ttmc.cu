@@ -36,7 +36,8 @@
 //     fields (counts, a CTA-wide scan, then places), each reading
 //     kSortUnroll rounds of fields before counting any, with
 //     warp-aggregated shared-memory atomics (__match_any_sync), so a hot
-//     row costs one atomic per warp.  The permutation is kept as 16-bit
+//     row costs one atomic per warp (sort_pass, blocked.cuh, shared with
+//     the MTTKRP kernel).  The permutation is kept as 16-bit
 //     slot offsets in shared memory (16 KB).  Sorting a range rather than a
 //     256-slot step makes row runs about 10 times longer at NELL-2 size (49
 //     against 4.6 slots on average per 16,384-slot range; a slot's run,
@@ -101,7 +102,6 @@ namespace {
 
 constexpr int kMaxIn = 4;
 constexpr int kSortSlots = 8192;   // slots sorted at once: 16-bit offsets, 16 KB
-constexpr int kSortUnroll = 8;     // rounds of a sort pass whose fields are read at once
 constexpr int kQ = 4;              // columns per quad: 4 lanes of the last factor
 constexpr int kMaxQuads = 8;       // quads per lane (32 columns); more make column slices
 constexpr int kMaxRows = 4096;     // tile rows per CTA (16 KB of counts); more make row parts
@@ -153,52 +153,6 @@ struct Fields {
   float val;
   int in[N_IN];
 };
-
-// Count (and place) slot `row` of this lane in s_count: lanes of a warp
-// with the same row add with one atomic.  Every lane of the warp calls it;
-// row < 0 takes no place.  Returns the lane's place in its row.
-__device__ __forceinline__ int warp_add(int* s_count, int row) {
-  const unsigned peers = __match_any_sync(0xffffffffu, row);
-  const int lane = threadIdx.x & 31;
-  const int leader = __ffs(peers) - 1;
-  int base = 0;
-  if (lane == leader && row >= 0) base = atomicAdd(&s_count[row], __popc(peers));
-  base = __shfl_sync(0xffffffffu, base, leader);
-  return base + __popc(peers & ((1u << lane) - 1u));
-}
-
-// One pass of the counting sort over the chunk's n slots from s0: count
-// each real slot of this CTA's rows (row0.., rows_here of them) in s_count,
-// and with PLACE, put its offset at its place in s_perm.  The fields of
-// kSortUnroll rounds of kThreads slots are read before any is counted.
-template <bool PLACE>
-__device__ __forceinline__ void sort_pass(const Args& a, int* s_count, uint16_t* s_perm, int64_t s0, int n,
-                                          int row0, int rows_here) {
-  const int rounds = (n + kThreads - 1) / kThreads;
-  for (int r0 = 0; r0 < rounds; r0 += kSortUnroll) {
-    int row[kSortUnroll];
-#pragma unroll
-    for (int u = 0; u < kSortUnroll; ++u) {
-      const int o = (r0 + u) * kThreads + static_cast<int>(threadIdx.x);
-      float v = 0.0f;
-      int x = 0;
-      if (o < n) {
-        v = a.vals[s0 + o];
-        x = a.iloc[s0 + o] - row0;
-      }
-      row[u] = v != 0.0f && x >= 0 && x < rows_here ? x : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < kSortUnroll; ++u) {
-      if (r0 + u < rounds) {  // the same for every thread
-        const int pos = warp_add(s_count, row[u]);
-        if (PLACE && row[u] >= 0) {
-          s_perm[pos] = static_cast<uint16_t>((r0 + u) * kThreads + static_cast<int>(threadIdx.x));
-        }
-      }
-    }
-  }
-}
 
 // The fields of sorted slot p (none past lim), read through the permutation.
 template <int N_IN>
@@ -419,6 +373,11 @@ __global__ void __launch_bounds__(kThreads, NQ <= 2 ? kMinCtasPerSm : 2) ttmc_bl
 
   for (int i = threadIdx.x; i < rows_here; i += kThreads) s_count[i] = 0;
   __syncthreads();
+  // The sort keeps each slot's offset in the chunk, at its place.
+  const auto no_fetch = [](int) { return NoFields{}; };
+  const auto keep_offset = [&](int pos, int o, int, float, NoFields) {
+    s_perm[pos] = static_cast<uint16_t>(o);
+  };
 
   const int64_t per = (a.nblocks + ranges - 1) / ranges;
   const int64_t b_begin = range * per;
@@ -440,11 +399,11 @@ __global__ void __launch_bounds__(kThreads, NQ <= 2 ? kMinCtasPerSm : 2) ttmc_bl
     const int64_t s_end = e * a.blk;
     for (int64_t s0 = b * a.blk; s0 < s_end; s0 += kSortSlots) {
       const int n = s_end - s0 < kSortSlots ? static_cast<int>(s_end - s0) : kSortSlots;
-      sort_pass<false>(a, s_count, s_perm, s0, n, row0, rows_here);  // counts
-      __syncthreads();                                                // row counts complete
+      sort_pass<false>(a, s_count, s0, n, row0, rows_here, no_fetch, keep_offset);  // counts
+      __syncthreads();  // row counts complete
       const int total = exclusive_scan(s_count, rows_here, s_warp);
-      sort_pass<true>(a, s_count, s_perm, s0, n, row0, rows_here);  // places
-      __syncthreads();                                               // the permutation is complete
+      sort_pass<true>(a, s_count, s0, n, row0, rows_here, no_fetch, keep_offset);  // places
+      __syncthreads();  // the permutation is complete
       for (int i = threadIdx.x; i < rows_here; i += kThreads) s_count[i] = 0;
       const int64_t out_row0 = static_cast<int64_t>(tile) * a.tile_i;
       warp_rows<N_IN, NQ>(a, s_perm, total, s0, out_row0, g, s_edge, s_edge_row);

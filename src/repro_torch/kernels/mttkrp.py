@@ -141,10 +141,10 @@ def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torc
 
     CUDA tensors launch the Hopper kernel on the current stream (and count
     one launch); CPU tensors run `mttkrp_blocked_plain`.  Any tile_i and
-    width run: the kernel splits a tile too large for a CTA into row parts,
-    and a row too wide for one into column slices.  Raises RuntimeError if
-    the launch fails.  Returns (plan.out_rows, factor width) float32, zero
-    wherever no non-zero lands."""
+    width run: the kernel splits a tile of more than 4,096 rows into row
+    parts, and a row of more than 1,024 columns into column slices.  Raises
+    RuntimeError if the launch fails.  Returns (plan.out_rows, factor width)
+    float32, zero wherever no non-zero lands."""
     dev = plan.vals.device
     if dev.type == "cpu":
         return mttkrp_blocked_plain(plan, factors_pad)

@@ -1,11 +1,11 @@
 """Port tests that need the card: the CUDA MTTKRP, TTMc and TT-core kernels
 against their plain versions (also at the wide ranks that need column
-slices or smaller steps: CP rank 256, Tucker (100, 8, 100), TT (24, 24),
-(40, 48) and (100, 100); at tile_i = 8,192, which splits the MTTKRP and
-TTMc tiles into row parts; and on a tensor whose hot rows fill whole block
-ranges), and the CP-ALS, Tucker HOOI and TT-ALS paths on CUDA against the
-CPU path.  Marked `gpu`;
-they skip where torch sees no CUDA device.  Run them on a GPU machine
+slices, wider groups or smaller steps: CP rank 256 and 1,100, Tucker
+(100, 8, 100), TT (24, 24), (40, 48) and (100, 100); at tile_i = 8,192,
+which splits the MTTKRP and TTMc row counts into row parts; and on a
+tensor whose hot rows fill whole block ranges), and the CP-ALS, Tucker
+HOOI and TT-ALS paths on CUDA against the CPU path.  Marked `gpu`; they
+skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
 
@@ -49,8 +49,8 @@ GEOMETRIES = {
 }
 
 
-# An output tile of 8,192 rows: more than a CTA holds at rank 16 (MTTKRP) or
-# in its row counts (TTMc), so both kernels split it into row parts.
+# An output tile of 8,192 rows: more than the MTTKRP and TTMc kernels keep
+# row counts for in a CTA (4,096), so both split it into row parts.
 BIG_TILE = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=8192))
 
 
@@ -96,17 +96,37 @@ def test_kernel_matches_plain_version(cuda, preset, geometry):
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 @pytest.mark.parametrize("preset", ["tiny", "4d_small", "5d_small"])
 def test_kernel_matches_plain_version_at_rank_256(cuda, preset, geometry):
-    """CP rank 256: a 256 x 256 output tile (256 KB) does not fit in a CTA,
-    so the kernel takes it in column slices."""
+    """CP rank 256: 64 float4 quads a row, two a lane of a 32-lane group."""
     check_mttkrp(cuda, frostt_like(preset), 256, GEOMETRIES[geometry])
 
 
 @pytest.mark.parametrize("rank", [16, 256])
 @pytest.mark.parametrize("preset", ["tiny", "4d_small"])
 def test_kernel_at_tile_i_8192(cuda, preset, rank):
-    """tile_i = 8,192: the tile splits into row parts (and at rank 256 a row
-    part holds fewer rows), each CTA keeping only its rows' slots."""
+    """tile_i = 8,192: the tile splits into row parts, each CTA keeping only
+    its rows' slots."""
     check_mttkrp(cuda, frostt_like(preset), rank, BIG_TILE)
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_kernel_in_column_slices(cuda, geometry):
+    """CP rank 1,100: more columns than a 32-lane group holds (1,024), so the
+    kernel takes the row in two column slices."""
+    check_mttkrp(cuda, frostt_like("tiny"), 1_100, GEOMETRIES[geometry])
+
+
+def hot_row_tensor():
+    """Zipf skew 3 on 2,000 rows: a few rows hold most of every block range,
+    so their runs span many of a CTA's groups and warps."""
+    return synthetic_tensor((2_000, 300, 400), 50_000, seed=0, skew=3.0)
+
+
+@pytest.mark.parametrize("rank", [16, 256])
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_kernel_on_hot_rows(cuda, geometry, rank):
+    """A hot row's float32 sums stay within TOL: its groups' shares reach
+    the output once per sorted chunk, not once per group."""
+    check_mttkrp(cuda, hot_row_tensor(), rank, GEOMETRIES[geometry])
 
 
 def test_cuda_fits_match_cpu(cuda):
@@ -174,8 +194,7 @@ def test_ttmc_kernel_at_tile_i_8192(cuda, preset, core_ranks):
 def test_ttmc_kernel_on_hot_rows(cuda, geometry):
     """Zipf skew 3 on 2,000 rows: a few rows hold most of every block range,
     so their runs are split over many windows and warps."""
-    st = synthetic_tensor((2_000, 300, 400), 50_000, seed=0, skew=3.0)
-    check_ttmc(cuda, st, (16, 16, 16), GEOMETRIES[geometry])
+    check_ttmc(cuda, hot_row_tensor(), (16, 16, 16), GEOMETRIES[geometry])
 
 
 def test_cuda_tucker_fits_match_cpu(cuda):
