@@ -36,6 +36,17 @@ printing one JSON line:
   h  main     decompose(st, (16, 16), format="tt", iters=5, init="random",
               seed=0) with the launch counters reset just before and read
               just after
+  i  pms      the PMS and auto-tuning on the same tensor: hypergraph stats
+              and the analytic search per kernel and mode (host seconds,
+              top 5); each kernel held to its float64 plain version and
+              timed at the search's top 3 and the default (MTTKRP on every
+              mode, TTMc on mode 0, TT-core on modes 0 and 1), beside the
+              exact prediction, its achieved share and the Spearman rank of
+              predicted against measured; decompose(..., auto_tune=True)
+              for CP, Tucker and TT with the launch counters read, fits
+              held to phases d, f and h; a warm auto_tune="cached" call
+              that evaluates no configuration; the calibration
+              microbenchmarks and the block-sweep fit of the PMS's rates
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -48,8 +59,10 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,12 +70,21 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.api import decompose  # noqa: E402
+from repro_torch.core import pms  # noqa: E402
 from repro_torch.core.coo import frostt_like, synthetic_tensor  # noqa: E402
 from repro_torch.core.cp_als import fit_value  # noqa: E402
-from repro_torch.core.memctrl import CacheEngineConfig, MemoryControllerConfig  # noqa: E402
+from repro_torch.core.hypergraph import stats as hg_stats  # noqa: E402
+from repro_torch.core.memctrl import CacheEngineConfig, GPUSpec, MemoryControllerConfig  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
-from repro_torch.kernels.ops import _tt_bond_pairs, make_planned_cp_als  # noqa: E402
+from repro_torch.kernels.ops import (  # noqa: E402
+    _tt_bond_pairs,
+    make_planned_cp_als,
+    make_planned_mttkrp,
+    make_planned_ttcore,
+    make_planned_ttmc,
+)
+from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.kernels.tt import ttcore_blocked, ttcore_blocked_plain  # noqa: E402
 from repro_torch.kernels.ttm import kron_cols, ttmc_blocked, ttmc_blocked_plain  # noqa: E402
 from repro_torch.tt.als import (  # noqa: E402
@@ -75,6 +97,14 @@ from repro_torch.tt.als import (  # noqa: E402
     make_planned_tt,
     matrix_to_core,
     tt_inner,
+)
+from repro_torch.tune import (  # noqa: E402
+    DEFAULT_CALIBRATION_CFGS,
+    fit_spec,
+    measure_hbm_bw,
+    measure_peak_flops_f32,
+    predicted_seconds,
+    sweep_sample,
 )
 from repro_torch.tucker.hooi import (  # noqa: E402
     _core_from_unfolding,
@@ -139,6 +169,16 @@ PLAIN_REPS = 3
 # The TTMc plain version takes seconds per call at NELL-2 size.
 TTMC_PLAIN_REPS = 1
 SWEEP_REPS = 3
+# Phase i: the search's best configurations built and timed per kernel, the
+# configurations listed per search, and the modes the TTMc and TT-core
+# kernels are timed on (TT-core's middle mode takes row parts; modes 0 and
+# 2 are alike).
+PMS_TIMED = 3
+PMS_LISTED = 5
+PMS_MODES = {"mttkrp": (0, 1, 2), "ttmc": (0,), "tt": (0, 1)}
+# Fits of the auto-tuned runs against phases d, f and h: the same algorithm
+# on other plan geometries, float32 sums in another order.
+TOL_TUNED_FIT = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -398,9 +438,11 @@ def main() -> int:
 
     del state
     torch.cuda.empty_cache()
-    tucker = tucker_phases(st, gen, ctypes.CDLL(str(earlier_libs[EARLIER_TTMC])))
+    tucker, tucker_fits = tucker_phases(st, gen, ctypes.CDLL(str(earlier_libs[EARLIER_TTMC])))
     torch.cuda.empty_cache()
-    tt = tt_phases(st, gen)
+    tt, tt_fits = tt_phases(st, gen)
+    torch.cuda.empty_cache()
+    pms_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen)
 
     emit({"kernels": [{
         "name": "mttkrp_blocked",
@@ -425,10 +467,11 @@ def main() -> int:
     return 0
 
 
-def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> dict:
+def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> tuple[dict, list[float]]:
     """Phases e and f on the NELL-2-size tensor `st`; `earlier` is the
     library of the TTMc kernel the current one replaced, timed beside it.
-    Returns the TTMc kernel's entry of the `kernels` line."""
+    Returns the TTMc kernel's entry of the `kernels` line and phase f's
+    fits."""
     presets, big = [], []
     for preset, core_ranks in PRESET_CORE_RANKS.items():
         small = frostt_like(preset)
@@ -550,12 +593,12 @@ def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> dict:
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
         "library_ms": None,
-    }
+    }, fits
 
 
-def tt_phases(st, gen: torch.Generator) -> dict:
+def tt_phases(st, gen: torch.Generator) -> tuple[dict, list[float]]:
     """Phases g and h on the NELL-2-size tensor `st`; returns the TT-core
-    kernel's entry of the `kernels` line."""
+    kernel's entry of the `kernels` line and phase h's fits."""
     presets = []
     for preset, tt_ranks in PRESET_TT_RANKS.items():
         small = frostt_like(preset)
@@ -681,7 +724,214 @@ def tt_phases(st, gen: torch.Generator) -> dict:
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
         "library_ms": None,
-    }
+    }, fits
+
+
+def cfg_label(cfg: MemoryControllerConfig) -> list[int]:
+    c = cfg.cache
+    return [c.tile_i, c.tile_j, c.tile_k, cfg.dma.blk]
+
+
+def spearman(a: list[float], b: list[float]) -> float:
+    """Spearman's rank correlation (Pearson's on ranks; ties take their
+    average rank)."""
+
+    def ranks(x):
+        order = sorted(range(len(x)), key=lambda i: x[i])
+        r = [0.0] * len(x)
+        k = 0
+        while k < len(order):
+            j = k
+            while j + 1 < len(order) and x[order[j + 1]] == x[order[k]]:
+                j += 1
+            for t in range(k, j + 1):
+                r[order[t]] = (k + j) / 2
+            k = j + 1
+        return r
+
+    ra, rb = ranks(a), ranks(b)
+    ma, mb = sum(ra) / len(ra), sum(rb) / len(rb)
+    cov = sum((x - ma) * (y - mb) for x, y in zip(ra, rb))
+    var = math.sqrt(sum((x - ma) ** 2 for x in ra) * sum((y - mb) ** 2 for y in rb))
+    return cov / var if var else float("nan")
+
+
+def check_exact(kernel, plain, plan, facs, *extra, what: str) -> float:
+    """Kernel vs its plain version in float64 on the same inputs (phase c's
+    full-size tolerance); returns the error relative to each column's max."""
+    ker = kernel(plan, facs, *extra)
+    exact = plain(dataclasses.replace(plan, vals=plan.vals.double()), [f.double() for f in facs], *extra)
+    _, rel_err = errors(ker, exact)
+    del ker, exact
+    check(rel_err <= TOL_FULL, f"{what}: kernel rel err {rel_err} > {TOL_FULL}")
+    return rel_err
+
+
+def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
+    """Phase i on the NELL-2-size tensor `st`: the PMS's search, its picks
+    held to the plain versions and timed against its predictions, the
+    auto-tuned decompositions against phases d, f and h (`main_fits`), a
+    warm autotune cache, and the calibration of the PMS's rates."""
+    spec = GPUSpec()
+    phase_t0 = t0 = time.perf_counter()
+    hs = hg_stats(st)
+    stats_s = time.perf_counter() - t0
+    kernels = {"mttkrp": (RANK, None), "ttmc": (RANK, CORE_RANKS), "tt": (RANK, TT_RANKS)}
+    searches, picks = [], {}
+    for kernel, (rank, ranks) in kernels.items():
+        for m in range(st.nmodes):
+            metrics.reset()
+            t0 = time.perf_counter()
+            top = pms.search(hs, m, rank, spec=spec, kernel=kernel, core_ranks=ranks,
+                             top_k=PMS_LISTED)
+            search_s = time.perf_counter() - t0
+            scored = metrics.snapshot()["counters"][
+                f"pms.configs_evaluated{{kernel={kernel},sharded=false}}"]
+            picks[kernel, m] = [e.cfg for e in top[:PMS_TIMED]]
+            searches.append({"kernel": kernel, "mode": m, "search_s": search_s, "scored": scored,
+                             "top": [{"cfg": cfg_label(e.cfg), "predicted_ms": e.t_total * 1e3,
+                                      "smem_bytes": e.smem_bytes, "row_parts": e.row_parts}
+                                     for e in top]})
+
+    # Each kernel at the top configurations and the default: held to its
+    # float64 plain version, timed, and set beside the exact prediction.
+    timed = []
+    for kernel, modes in PMS_MODES.items():
+        rank, ranks = kernels[kernel]
+        for m in modes:
+            cfgs = picks[kernel, m] + [c for c in [MemoryControllerConfig()] if c not in picks[kernel, m]]
+            rows = []
+            for cfg in cfgs:
+                what = f"{kernel} mode {m} at {cfg_label(cfg)}"
+                if kernel == "mttkrp":
+                    op = make_planned_mttkrp(st, m, rank, cfg=cfg, device="cuda")
+                    facs = random_padded(op.plan, [rank_padded(rank)] * op.plan.n_in, gen)
+                    args = (mttkrp_blocked, mttkrp_blocked_plain, op.plan, facs)
+                    est = pms.predict_from_plan(op.plan, rank, cfg, spec)
+                elif kernel == "ttmc":
+                    op = make_planned_ttmc(st, m, ranks, cfg=cfg, device="cuda")
+                    facs = random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen)
+                    args = (ttmc_blocked, ttmc_blocked_plain, op.plan, facs, op.in_ranks)
+                    est = pms.predict_ttmc(op.plan, ranks, cfg, spec)
+                else:
+                    op = make_planned_ttcore(st, m, ranks, cfg=cfg, device="cuda")
+                    facs = random_padded(op.plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen)
+                    args = (ttcore_blocked, ttcore_blocked_plain, op.plan, facs, op.in_rank_pairs, op.n_left)
+                    est = pms.predict_tt(op.plan, ranks, cfg, spec)
+                rel_err = check_exact(*args, what=what)
+                ker, _, plan, *rest = args
+                ms = cuda_ms(lambda: ker(plan, *rest), KERNEL_REPS)
+                rows.append({"cfg": cfg_label(cfg), "default": cfg == MemoryControllerConfig(),
+                             "nblocks": plan.nblocks, "padding": plan.padding_fraction(),
+                             "predicted_ms": est.t_total * 1e3, "t_stream_ms": est.t_stream * 1e3,
+                             "t_factor_ms": est.t_factor * 1e3, "t_out_ms": est.t_out * 1e3,
+                             "t_compute_ms": est.t_compute * 1e3, "ms": ms,
+                             "achieved_share": est.t_total * 1e3 / ms, "smem_bytes": est.smem_bytes,
+                             "row_parts": est.row_parts, "col_slices": est.col_slices,
+                             "max_rel_err": rel_err})
+                del op, facs, args, plan, rest, ker
+                torch.cuda.empty_cache()
+            timed.append({"kernel": kernel, "mode": m, "configs": rows,
+                          "spearman": spearman([r["predicted_ms"] for r in rows], [r["ms"] for r in rows])})
+
+    # decompose(..., auto_tune=True) for every format: the workspace it
+    # builds (plan build, picks, sweep), then the call itself.
+    formats = {"cp": (RANK, {}, "d"), "tucker": (CORE_RANKS, {}, "f"),
+               "tt": (TT_RANKS, {"init": "random"}, "h")}
+    make_planned = {"cp": make_planned_cp_als, "tucker": make_planned_tucker, "tt": make_planned_tt}
+    counters = {"cp": mttkrp_blocked, "tucker": ttmc_blocked, "tt": ttcore_blocked}
+    norm_x_sq = torch.tensor(float((st.values.astype("float64") ** 2).sum()), device="cuda")
+    tuned = []
+    for fmt, (rank, extra, phase) in formats.items():
+        t0 = time.perf_counter()
+        ws = make_planned[fmt](st, rank, auto_tune=True, device="cuda")
+        torch.cuda.synchronize()
+        plan_build_s = time.perf_counter() - t0
+        chosen = [cfg_label(ws.ops[m].cfg) for m in range(st.nmodes)]
+        if fmt == "tucker":
+            facs = ws.pad_factors(init_tucker_factors(st.shape, rank, seed=0, device=torch.device("cuda")))
+            args = (norm_x_sq,)
+        else:
+            if fmt == "cp":
+                init = [torch.randn((s, rank), generator=gen, device="cuda") / math.sqrt(rank)
+                        for s in st.shape]
+            else:
+                init = [core_to_matrix(c) for c in
+                        init_tt_cores(st.shape, rank, seed=0, device=torch.device("cuda"))]
+            facs = ws.pad_factors(init)
+            args = (torch.from_numpy(st.indices).cuda(), torch.from_numpy(st.values).cuda(), norm_x_sq)
+        facs, _, _ = ws.sweep(facs, *args, first=True)
+        sweep_ms = cuda_ms(lambda: ws.sweep(facs, *args), SWEEP_REPS)
+        del ws, facs, args
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        state = decompose(st, rank, format=fmt, iters=ITERS, seed=0, auto_tune=True, **extra)
+        torch.cuda.synchronize()
+        decompose_s = time.perf_counter() - t0
+        launches = counters[fmt].launches
+        check(sum(c.launches for c in counters.values()) == launches == st.nmodes * ITERS,
+              f"auto-tuned {fmt}: {launches} launches of its kernel, expected {st.nmodes * ITERS}")
+        fits = state.fit_history
+        gap = max(abs(a - b) for a, b in zip(fits, main_fits[fmt]))
+        check(len(fits) == ITERS and all(math.isfinite(f) for f in fits) and gap <= TOL_TUNED_FIT,
+              f"auto-tuned {fmt} fits {fits} against phase {phase}'s {main_fits[fmt]}")
+        tuned.append({"format": fmt, "ranks": rank, "chosen": chosen, "plan_build_s": plan_build_s,
+                      "sweep_ms": sweep_ms, "decompose_s": decompose_s,
+                      "peak_device_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
+                      "fits": fits, f"phase_{phase}_fits": main_fits[fmt], "max_fit_gap": gap})
+        del state
+        torch.cuda.empty_cache()
+
+    # A warm autotune cache: the second auto_tune="cached" call evaluates
+    # no configuration and takes the first one's picks.
+    with tempfile.TemporaryDirectory() as cache_dir:
+        before = os.environ.get("REPRO_TORCH_AUTOTUNE_DIR")
+        os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = cache_dir
+        try:
+            cached = []
+            for _ in range(2):
+                metrics.reset()
+                state = decompose(st, RANK, format="cp", iters=1, seed=0, auto_tune="cached")
+                snap = metrics.snapshot()["counters"]
+                cached.append({"fit": state.fit_history[0],
+                               "configs_evaluated": sum(v for k, v in snap.items()
+                                                        if k.startswith("pms.configs_evaluated")),
+                               "cache_hits": sum(v for k, v in snap.items()
+                                                 if k.startswith("autotune_cache.hits"))})
+                del state
+                torch.cuda.empty_cache()
+        finally:
+            if before is None:
+                del os.environ["REPRO_TORCH_AUTOTUNE_DIR"]
+            else:
+                os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = before
+    check(cached[0]["configs_evaluated"] == 256 * st.nmodes and cached[1]["configs_evaluated"] == 0
+          and cached[1]["cache_hits"] == st.nmodes and cached[1]["fit"] == cached[0]["fit"],
+          f"autotune cache: {cached}")
+
+    # Calibration: the card's rates, and the block-sweep fit of the PMS's.
+    bw = measure_hbm_bw()
+    pf = measure_peak_flops_f32()
+    samples = []
+    for cfg in DEFAULT_CALIBRATION_CFGS:
+        samples.append(sweep_sample(st, RANK, cfg, reps=SWEEP_REPS))
+        torch.cuda.empty_cache()
+    fitted = fit_spec(samples, spec, fallback_hbm_bw=bw, fallback_peak_flops=pf)
+    calib = {"measured_hbm_bw": bw, "measured_peak_flops_f32": pf,
+             "datasheet_hbm_bw": spec.hbm_bw, "datasheet_peak_flops_f32": spec.peak_flops_f32,
+             "fitted_hbm_bw": fitted.hbm_bw, "fitted_peak_flops_f32": fitted.peak_flops_f32,
+             "samples": [{"cfg": s.label, "sweep_ms": s.measured_s * 1e3, "bytes": s.mem_bytes,
+                          "flops": s.flops,
+                          "predicted_ms_datasheet": predicted_seconds(s.per_mode, spec) * 1e3,
+                          "predicted_ms_fitted": predicted_seconds(s.per_mode, fitted) * 1e3}
+                         for s in samples]}
+    emit({"phase": "i", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "stats_s": stats_s, "searches": searches,
+          "timed": timed, "auto_tuned": tuned, "cached": cached, "calibration": calib,
+          "tol_full": TOL_FULL, "tol_tuned_fit": TOL_TUNED_FIT})
 
 
 if __name__ == "__main__":

@@ -7,6 +7,9 @@ hand-written Hopper CUDA kernels compute each mode's MTTKRP
 (`kernels/csrc/mttkrp.cu`), TTM chain (`kernels/csrc/ttmc.cu`) and TT-core
 right-hand side (`kernels/csrc/ttcore.cu`); `api.decompose(st, rank,
 format="cp" | "tucker" | "tt")` drives the CP-ALS, HOOI or TT-ALS loop.
+The Performance Model Simulator (`core/pms.py`) prices plan geometries for
+those kernels on an H100 and picks one per mode with `auto_tune=True`;
+`tune/` keeps the picks and fits the model's rates to the card.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no device given they raise instead of falling back to the CPU.

@@ -5,6 +5,7 @@
     tk = decompose(st, (16, 16, 16), format="tucker")  # HOOI on the CUDA TTMc kernel
     tt = decompose(st, (16, 16), format="tt")          # TT-ALS on the CUDA TT-core kernel
     cp = decompose(st, 4, device="cpu")                # the plain PyTorch path
+    cp = decompose(st, 16, auto_tune=True)             # PMS-picked plan geometry per mode
 """
 from __future__ import annotations
 
@@ -33,6 +34,9 @@ def decompose(
     init_factors: Sequence | None = None,
     init: str | None = None,
     planned=None,
+    auto_tune: bool | str = False,
+    spec="default",
+    cfg=None,
     device: str | torch.device | None = None,
     verbose: bool = False,
 ) -> CPState | TuckerState | TTState:
@@ -54,6 +58,15 @@ def decompose(
       init: TT only: 'auto' (the default), 'svd' or 'random' (see `tt_als`).
       planned: a prebuilt `PlannedCPALS`, `PlannedTucker` or `PlannedTT`
         whose plans are reused.
+      auto_tune / spec / cfg: the plan geometry of a workspace built here:
+        `cfg` (a `MemoryControllerConfig`) for every mode, or, with
+        auto_tune=True, the PMS's pick per mode for the format's kernel
+        (`repro_torch.core.pms.search`, analytic); "cached" serves each
+        mode's winner from the autotune cache
+        (`$REPRO_TORCH_AUTOTUNE_DIR`), searching and writing back on a
+        miss.  `spec`: the PMS's hardware constants, a `GPUSpec`,
+        "default" (the H100 data sheet) or "measured" (this card's fitted
+        spec from the cache; calibrated on the card on a miss).
       device: CUDA unless given; raises when no GPU is present and no device
         was given.
 
@@ -66,15 +79,18 @@ def decompose(
         raise ValueError(f"unknown format {format!r}: expected 'cp', 'tucker' or 'tt'")
     if init is not None and format != "tt":
         raise ValueError(f"init= is taken by format='tt' only, not format={format!r}")
+    if auto_tune not in (False, True, "cached"):
+        raise ValueError(f"auto_tune must be False, True or 'cached', got {auto_tune!r}")
+    tune = dict(auto_tune=auto_tune, spec=spec, cfg=cfg)
     if format == "tt":
         ranks = (rank,) * (st.nmodes - 1) if isinstance(rank, int) else tuple(int(r) for r in rank)
         return tt_als(st, ranks, iters=iters, tol=tol, init=init or "auto", init_cores=init_factors,
-                      seed=seed, device=device, planned=planned, verbose=verbose)
+                      seed=seed, device=device, planned=planned, verbose=verbose, **tune)
     if format == "tucker":
         ranks = (rank,) * st.nmodes if isinstance(rank, int) else tuple(int(r) for r in rank)
         return tucker_hooi(st, ranks, iters=iters, tol=tol, init_factors=init_factors,
-                           seed=seed, device=device, planned=planned, verbose=verbose)
+                           seed=seed, device=device, planned=planned, verbose=verbose, **tune)
     if not isinstance(rank, int):
         raise ValueError(f"format='cp' takes a single integer rank, got {rank!r}")
     return cp_als(st, rank, iters=iters, tol=tol, init_factors=init_factors, seed=seed,
-                  device=device, planned=planned, verbose=verbose)
+                  device=device, planned=planned, verbose=verbose, **tune)

@@ -12,13 +12,19 @@ import numpy as np
 import torch
 
 from .core.cp_als import CPState
+from .core.memctrl import MemoryControllerConfig, config_from_dict
 from .core.remap import BlockPlan
 from .kernels.workspace import _plan_device_arrays
 from .tt.als import TTState
 from .tucker.hooi import TuckerState
 
-__all__ = ["factors_from_numpy", "cores_from_numpy", "plan_from_numpy", "cpstate_to_numpy",
-           "tuckerstate_to_numpy", "ttstate_to_numpy"]
+__all__ = ["factors_from_numpy", "cores_from_numpy", "plan_from_numpy", "config_from_reference",
+           "cpstate_to_numpy", "tuckerstate_to_numpy", "ttstate_to_numpy"]
+
+#: Fields of the reference's configuration that only its TPU VMEM model
+#: reads (resident factor tiles, double buffering); the port's kernels
+#: have no counterpart.
+_TPU_ONLY_FIELDS = {"cache": ("resident_tiles",), "dma": ("buffers",)}
 
 
 def factors_from_numpy(factors: Sequence[np.ndarray], device: str | torch.device) -> list[torch.Tensor]:
@@ -57,6 +63,19 @@ def plan_from_numpy(fields: dict, device: str | torch.device) -> BlockPlan:
         nnz=int(fields["nnz"]),
     )
     return _plan_device_arrays(plan, torch.device(device))
+
+
+def config_from_reference(d: dict) -> MemoryControllerConfig:
+    """The reference's `config_to_dict` payload (a plain nested dict) as the
+    port's `MemoryControllerConfig`: the same tiles, blk and Remapper
+    widths, less the fields only the TPU's VMEM model reads.  Raises
+    ValueError on any other field the port does not know."""
+    if not isinstance(d, dict):
+        raise ValueError(f"config: expected a dict, got {type(d).__name__}")
+    ours = {k: ({f: x for f, x in v.items() if f not in _TPU_ONLY_FIELDS.get(k, ())}
+                if isinstance(v, dict) else v)
+            for k, v in d.items()}
+    return config_from_dict(ours)
 
 
 def cpstate_to_numpy(state: CPState) -> dict:

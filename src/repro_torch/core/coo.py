@@ -8,6 +8,7 @@ torch device for the fit's inner product.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Sequence
 
 import numpy as np
@@ -56,6 +57,25 @@ class SparseTensor:
     @property
     def density(self) -> float:
         return self.nnz / float(np.prod([float(s) for s in self.shape]))
+
+    def mode_histogram(self, mode: int) -> np.ndarray:
+        """Non-zeros per coordinate of `mode` (hypergraph vertex degrees)."""
+        return np.bincount(self.indices[:, mode], minlength=self.shape[mode])
+
+    def fingerprint(self) -> str:
+        """Content hash of (shape, indices, values): the same hex string as
+        the reference's for the same arrays, so the autotune cache keys of
+        both packages name a tensor alike.  Cached on the instance; the
+        arrays are treated as immutable after construction."""
+        fp = getattr(self, "_fingerprint", None)
+        if fp is None:
+            h = hashlib.sha1()
+            h.update(repr(self.shape).encode())
+            h.update(np.ascontiguousarray(self.indices).tobytes())
+            h.update(np.ascontiguousarray(self.values).tobytes())
+            fp = h.hexdigest()
+            self._fingerprint = fp
+        return fp
 
 
 def norm_sq(st: SparseTensor) -> float:

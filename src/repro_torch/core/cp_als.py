@@ -145,6 +145,9 @@ def cp_als(
     seed: int = 0,
     device: str | torch.device | None = None,
     planned=None,
+    auto_tune: bool | str = False,
+    spec="default",
+    cfg=None,
     verbose: bool = False,
 ) -> CPState:
     """Run CP-ALS on the planned MTTKRP kernel.
@@ -157,13 +160,19 @@ def cp_als(
     device: CUDA unless the caller passes one (raises if no GPU is present).
     planned: a prebuilt `PlannedCPALS` (`make_planned_cp_als`, which also
       takes the plan geometry) to reuse its plans across calls.
+    auto_tune / spec / cfg: the workspace's plan geometry when `planned` is
+      not given: `cfg` (a `MemoryControllerConfig`) for every mode, or the
+      PMS's pick per mode for the MTTKRP kernel (auto_tune=True; "cached"
+      keeps the winners on disk); `spec` is the PMS's `GPUSpec`,
+      "default" or "measured".
     """
     from ..kernels.ops import PlannedCPALS, make_planned_cp_als  # kernels build on core
 
     device = resolve_device(device)
     factors = _initial_factors(st, rank, init_factors, seed, device)
     if planned is None:
-        planned = make_planned_cp_als(st, rank, device=device)
+        planned = make_planned_cp_als(st, rank, cfg=cfg, auto_tune=auto_tune, spec=spec,
+                                      device=device)
     else:
         check_workspace(planned, PlannedCPALS, {"shape": st.shape, "rank": rank}, device)
     idx, val = to_device(st, device)

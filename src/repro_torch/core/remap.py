@@ -73,6 +73,22 @@ class BlockPlan:
     def device(self) -> torch.device:
         return self.vals.device
 
+    def tile_fills(self) -> dict[str, int]:
+        """Tile fetches as the reference counts them: a tile is fetched
+        again only where the block's tile id changes from the block before.
+        Keys: "A" for the output tile, then "B", "C", ... per input mode.
+        The same dict as `repro.core.remap.BlockPlan.tile_fills`."""
+
+        def fills(ids: torch.Tensor) -> int:
+            if ids.numel() == 0:
+                return 0
+            return int(1 + torch.count_nonzero(ids[1:] != ids[:-1]).item())
+
+        out = {"A": fills(self.block_it)}
+        for n, ids in enumerate(self.block_in):
+            out[chr(ord("B") + n)] = fills(ids)
+        return out
+
     def padding_fraction(self) -> float:
         slots = self.vals.shape[0]
         return 1.0 - self.nnz / float(slots) if slots else 0.0

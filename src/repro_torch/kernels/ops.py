@@ -6,8 +6,9 @@ device-resident BlockPlan and run their kernel on it (for one tensor, mode
 and config all get the same plan: the kernel adapts to the layout);
 `PlannedCPALS` holds
 one per mode, built once and reused by every ALS iteration (the plan/remap
-cost is amortized over the decomposition).  No plan cache, no PMS auto-tune
-and no sharding yet.
+cost is amortized over the decomposition).  Every `make_planned_*` takes
+`cfg=`, or `auto_tune=` and `spec=` to let the PMS (core/pms.py) pick each
+mode's configuration for its kernel.  No plan cache and no sharding yet.
 """
 from __future__ import annotations
 
@@ -18,7 +19,10 @@ import torch
 
 from ..core.coo import SparseTensor
 from ..core.cp_als import _update_mode, fit_value
-from ..core.memctrl import MemoryControllerConfig
+from ..core.memctrl import GPUSpec, MemoryControllerConfig
+from ..core.pms import predict_from_plan
+from ..core.pms import resolve_spec as pms_resolve_spec
+from ..core.pms import search as pms_search
 from ..core.remap import BlockPlan, plan_blocks
 from ..device import resolve_device
 from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
@@ -71,15 +75,58 @@ def _plan(st: SparseTensor, mode: int, cfg: MemoryControllerConfig,
     )
 
 
+def _resolve_tune(auto_tune, spec) -> tuple[bool | str, GPUSpec]:
+    """Normalize the (auto_tune, spec) pair every `make_planned_*` takes:
+    `auto_tune` is False, True or "cached" (True, with the winner kept in
+    `repro_torch.tune.cache`, so a warm cache skips the search); `spec` a
+    GPUSpec, "default" or "measured" (this backend's fitted spec)."""
+    if auto_tune not in (False, True, "cached"):
+        raise ValueError(f"auto_tune must be False, True or 'cached', got {auto_tune!r}")
+    return auto_tune, pms_resolve_spec(spec)
+
+
+def _searched_cfg(auto_tune, kind: str, st: SparseTensor, mode: int, rank_key,
+                  spec: GPUSpec) -> MemoryControllerConfig:
+    """The analytic PMS search's winner for one mode of kernel `kind` at
+    `rank_key` (the CP rank, TTMc's N core ranks or TT's N-1 bond ranks):
+    searched on every call for auto_tune=True; for "cached", the persisted
+    winner of this (kind, tensor, mode, rank payload, backend, spec),
+    searched and written back only on a miss.  Raises where no
+    configuration fits the kernel's shared memory."""
+
+    def search():
+        rank, core_ranks = (rank_key, None) if kind == "mttkrp" else (0, rank_key)
+        best = pms_search(st, mode, rank, spec=spec, top_k=1, kernel=kind, core_ranks=core_ranks)
+        if not best:
+            raise ValueError(
+                f"PMS found no controller configuration whose {kind} kernel fits "
+                f"shared memory for mode {mode} at ranks {rank_key!r} (spec budget "
+                f"{spec.smem_per_block} bytes per CTA)")
+        return best[0].cfg
+
+    if auto_tune == "cached":
+        from ..tune.cache import cached_config  # deferred: tune -> ops
+
+        return cached_config(kind, st.fingerprint(), mode, rank_key, spec, search)
+    return search()
+
+
 def make_planned_mttkrp(
     st: SparseTensor,
     mode: int,
     rank: int,
     *,
     cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
     device: str | torch.device | None = None,
 ) -> PlannedMTTKRP:
-    """Build one mode's memory layout (the Tensor Remapper) on `device`."""
+    """Build one mode's memory layout (the Tensor Remapper) on `device`,
+    at `cfg` (or the default), or at the PMS's pick for the MTTKRP kernel
+    with auto_tune=True or "cached" (then `cfg` is ignored)."""
+    auto_tune, spec = _resolve_tune(auto_tune, spec)
+    if auto_tune:
+        cfg = _searched_cfg(auto_tune, "mttkrp", st, mode, rank, spec)
     cfg = cfg or MemoryControllerConfig()
     return PlannedMTTKRP(plan=_plan(st, mode, cfg, device), rank=rank, cfg=cfg)
 
@@ -116,18 +163,25 @@ def make_planned_ttmc(
     core_ranks: Sequence[int],
     *,
     cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
     device: str | torch.device | None = None,
 ) -> PlannedTTMC:
     """Build one output mode's layout for the TTMc kernel on `device`.
 
     `core_ranks` is the FULL N-tuple of Tucker core ranks; the op's
     `in_ranks` are taken from it in plan.in_modes order.  The plan is the
-    one `make_planned_mttkrp` builds for the same (tensor, mode, cfg)."""
+    one `make_planned_mttkrp` builds for the same (tensor, mode, cfg).
+    auto_tune / spec: let the PMS pick the configuration for the TTMc
+    kernel at these ranks (as `make_planned_mttkrp`)."""
     core_ranks = tuple(int(r) for r in core_ranks)
     if len(core_ranks) != st.nmodes:
         raise ValueError(
             f"core_ranks has {len(core_ranks)} entries for a {st.nmodes}-mode tensor "
             f"(pass the full N-tuple)")
+    auto_tune, spec = _resolve_tune(auto_tune, spec)
+    if auto_tune:
+        cfg = _searched_cfg(auto_tune, "ttmc", st, mode, core_ranks, spec)
     cfg = cfg or MemoryControllerConfig()
     plan = _plan(st, mode, cfg, device)
     return PlannedTTMC(plan=plan, in_ranks=tuple(core_ranks[m] for m in plan.in_modes), cfg=cfg)
@@ -195,6 +249,8 @@ def make_planned_ttcore(
     tt_ranks: Sequence[int],
     *,
     cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
     device: str | torch.device | None = None,
 ) -> PlannedTTCore:
     """Build one output mode's layout for the TT-core kernel on `device`.
@@ -202,8 +258,13 @@ def make_planned_ttcore(
     `tt_ranks` are the N-1 INTERIOR TT bond ranks (boundary bonds are 1);
     the op's `in_rank_pairs` are the per-core (rl, rr) pairs in
     plan.in_modes order.  The plan is the one `make_planned_mttkrp` builds
-    for the same (tensor, mode, cfg)."""
+    for the same (tensor, mode, cfg).  auto_tune / spec: let the PMS pick
+    the configuration for the TT-core kernel at these ranks (as
+    `make_planned_mttkrp`)."""
     pairs = _tt_bond_pairs(tt_ranks, st.nmodes)
+    auto_tune, spec = _resolve_tune(auto_tune, spec)
+    if auto_tune:
+        cfg = _searched_cfg(auto_tune, "tt", st, mode, tuple(int(r) for r in tt_ranks), spec)
     cfg = cfg or MemoryControllerConfig()
     plan = _plan(st, mode, cfg, device)
     return PlannedTTCore(plan=plan, in_rank_pairs=tuple(pairs[m] for m in plan.in_modes), cfg=cfg)
@@ -237,6 +298,16 @@ class PlannedCPALS(PlannedWorkspace):
     def _geoms(self) -> dict[int, BlockPlan]:
         return {m: op.plan for m, op in self.ops.items()}
 
+    def smem_model_bytes(self, spec: GPUSpec = GPUSpec()) -> int:
+        """Shared memory per CTA of the widest mode's MTTKRP launch."""
+        return max(op.cfg.mttkrp_launch(spec, self.rank_pad, op.plan.n_in).smem_bytes
+                   for op in self.ops.values())
+
+    def pms_estimates(self, spec: GPUSpec | str = GPUSpec()) -> dict:
+        """Exact per-mode PMS estimates from the built plans (measured fills
+        and padding): the predicted side of `obs.calibrate`."""
+        return {m: predict_from_plan(op.plan, self.rank, op.cfg, spec) for m, op in self.ops.items()}
+
     def sweep(self, facs, idx, val, norm_x_sq, *, first: bool = False):
         """One ALS iteration in padded space.
 
@@ -267,11 +338,17 @@ def make_planned_cp_als(
     rank: int,
     *,
     cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
     device: str | torch.device | None = None,
 ) -> PlannedCPALS:
     """Build the ALS workspace: one plan per output mode on `device` (CUDA
     unless given).  This is the whole layout-generation cost the
-    decomposition amortizes."""
+    decomposition amortizes.  `cfg` is shared by every mode; with
+    auto_tune=True or "cached" the PMS picks each mode's configuration
+    instead (modes differ in shape and locality, Sec. 5.3)."""
     device = resolve_device(device)
-    ops = {m: make_planned_mttkrp(st, m, rank, cfg=cfg, device=device) for m in range(st.nmodes)}
+    ops = {m: make_planned_mttkrp(st, m, rank, cfg=cfg, auto_tune=auto_tune, spec=spec,
+                                  device=device)
+           for m in range(st.nmodes)}
     return PlannedCPALS(ops=ops, shape=st.shape, rank=rank)

@@ -37,7 +37,8 @@ import torch
 
 from ..core.coo import SparseTensor, norm_sq, to_device
 from ..core.loop import check_workspace, finish_iter, given_factors
-from ..core.memctrl import MemoryControllerConfig
+from ..core.memctrl import GPUSpec, MemoryControllerConfig
+from ..core.pms import predict_tt
 from ..device import resolve_device
 from ..kernels.ops import PlannedTTCore, _tt_bond_pairs, make_planned_ttcore
 from ..kernels.ref import ttcore_ref
@@ -141,18 +142,21 @@ def init_tt_cores(shape: Sequence[int], tt_ranks: Sequence[int], *, seed: int,
 
 
 def tt_svd(st: SparseTensor, tt_ranks: Sequence[int], *,
-           device: str | torch.device = "cpu") -> list[torch.Tensor]:
+           device: str | torch.device | None = None) -> list[torch.Tensor]:
     """TT-SVD init (Oseledets): densify, then peel cores off left to right by
     sequential truncated SVD, on the host in float64 with the reference's
     numpy calls, so both packages get the same cores bit for bit.  A
     rank-deficient unfolding is zero-padded up to the requested bond rank.
-    Guarded to prod(shape) <= 2^22 elements; use init='random' beyond."""
+    Guarded to prod(shape) <= 2^22 elements; use init='random' beyond.
+    The cores land on `device`: CUDA unless given (raises if no GPU is
+    present)."""
     tr = _validated_tt_ranks(st, tt_ranks)
     nelem = math.prod(st.shape)
     if nelem > _TT_SVD_DENSE_LIMIT:
         raise ValueError(
             f"tt_svd densifies the tensor: prod(shape)={nelem} exceeds the "
             f"{_TT_SVD_DENSE_LIMIT}-element guard; use init='random'")
+    device = resolve_device(device)
     shape, nmodes = st.shape, st.nmodes
     dense = np.zeros(shape, np.float64)
     np.add.at(dense, tuple(st.indices[:, m] for m in range(nmodes)), st.values.astype(np.float64))
@@ -280,6 +284,10 @@ class PlannedTT(PlannedWorkspace):
     def _geoms(self) -> dict:
         return {m: op.plan for m, op in self.ops.items()}
 
+    def pms_estimates(self, spec: GPUSpec | str = GPUSpec()) -> dict:
+        """Exact per-mode TT-core PMS estimates from the built plans."""
+        return {m: predict_tt(op.plan, self.tt_ranks, op.cfg, spec) for m, op in self.ops.items()}
+
     def sweep(self, facs, idx, val, norm_x_sq, *, first: bool = False):
         """One TT-ALS iteration in padded space: for each mode, the TT-core
         kernel -> kron(P, Q) normal solve -> core update; then the fit.
@@ -311,13 +319,18 @@ def make_planned_tt(
     tt_ranks: int | Sequence[int],
     *,
     cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
     device: str | torch.device | None = None,
 ) -> PlannedTT:
     """Build the TT-ALS workspace: one TT-core plan per output mode on
-    `device` (CUDA unless given), all with `cfg` (or the default)."""
+    `device` (CUDA unless given), all with `cfg` (or the default), or each
+    at the PMS's pick for the TT-core kernel with auto_tune=True or
+    "cached"."""
     tr = _validated_tt_ranks(st, tt_ranks)
     device = resolve_device(device)
-    ops = {m: make_planned_ttcore(st, m, tr, cfg=cfg, device=device) for m in range(st.nmodes)}
+    ops = {m: make_planned_ttcore(st, m, tr, cfg=cfg, auto_tune=auto_tune, spec=spec, device=device)
+           for m in range(st.nmodes)}
     return PlannedTT(ops=ops, shape=st.shape, tt_ranks=tr)
 
 
@@ -349,6 +362,9 @@ def tt_als(
     seed: int = 0,
     tol: float | None = None,
     planned: PlannedTT | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = "default",
+    cfg: MemoryControllerConfig | None = None,
     device: str | torch.device | None = None,
     verbose: bool = False,
 ) -> TTState:
@@ -368,6 +384,9 @@ def tt_als(
       reference's `init_tt_cores`), in place of `init`.
     planned: a prebuilt `PlannedTT` (`make_planned_tt`, which also takes the
       plan geometry) to reuse its plans across calls.
+    auto_tune / spec / cfg: the workspace's plan geometry when `planned` is
+      not given: `cfg` for every mode, or the PMS's pick per mode for the
+      TT-core kernel (auto_tune=True; "cached" keeps the winners on disk).
     device: CUDA unless the caller passes one (raises if no GPU is present).
     """
     tr = _validated_tt_ranks(st, tt_ranks)
@@ -381,7 +400,7 @@ def tt_als(
     cores = _initial_cores(st, tr, init, init_cores, seed, device)
     pairs = _tt_bond_pairs(tr, st.nmodes)
     if method == "pallas" and planned is None:
-        planned = make_planned_tt(st, tr, device=device)
+        planned = make_planned_tt(st, tr, cfg=cfg, auto_tune=auto_tune, spec=spec, device=device)
     # The stream moves to the device after the plan build, whose
     # temporaries set the peak device memory.
     idx, val = to_device(st, device)

@@ -30,7 +30,8 @@ import torch
 
 from ..core.coo import SparseTensor, norm_sq, to_device
 from ..core.loop import check_workspace, finish_iter, given_factors
-from ..core.memctrl import MemoryControllerConfig
+from ..core.memctrl import GPUSpec, MemoryControllerConfig
+from ..core.pms import predict_ttmc
 from ..device import resolve_device
 from ..kernels.ops import PlannedTTMC, make_planned_ttmc
 from ..kernels.ref import ttmc_ref
@@ -143,6 +144,10 @@ class PlannedTucker(PlannedWorkspace):
     def _geoms(self) -> dict:
         return {m: op.plan for m, op in self.ops.items()}
 
+    def pms_estimates(self, spec: GPUSpec | str = GPUSpec()) -> dict:
+        """Exact per-mode TTMc PMS estimates from the built plans."""
+        return {m: predict_ttmc(op.plan, self.core_ranks, op.cfg, spec) for m, op in self.ops.items()}
+
     def sweep(self, facs, norm_x_sq, *, first: bool = False):
         """One HOOI iteration in padded space.
 
@@ -171,13 +176,17 @@ def make_planned_tucker(
     core_ranks: Sequence[int],
     *,
     cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
     device: str | torch.device | None = None,
 ) -> PlannedTucker:
     """Build the HOOI workspace: one TTMc plan per output mode on `device`
-    (CUDA unless given), all with `cfg` (or the default)."""
+    (CUDA unless given), all with `cfg` (or the default), or each at the
+    PMS's pick for the TTMc kernel with auto_tune=True or "cached"."""
     cr = _validated_core_ranks(st, core_ranks)
     device = resolve_device(device)
-    ops = {m: make_planned_ttmc(st, m, cr, cfg=cfg, device=device) for m in range(st.nmodes)}
+    ops = {m: make_planned_ttmc(st, m, cr, cfg=cfg, auto_tune=auto_tune, spec=spec, device=device)
+           for m in range(st.nmodes)}
     return PlannedTucker(ops=ops, shape=st.shape, core_ranks=cr)
 
 
@@ -191,6 +200,9 @@ def tucker_hooi(
     tol: float | None = None,
     init_factors: Sequence | None = None,
     planned: PlannedTucker | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = "default",
+    cfg: MemoryControllerConfig | None = None,
     device: str | torch.device | None = None,
     verbose: bool = False,
 ) -> TuckerState:
@@ -206,6 +218,9 @@ def tucker_hooi(
       `jax.random` draws for the same seed.
     planned: a prebuilt `PlannedTucker` (`make_planned_tucker`, which also
       takes the plan geometry) to reuse its plans across calls.
+    auto_tune / spec / cfg: the workspace's plan geometry when `planned` is
+      not given: `cfg` for every mode, or the PMS's pick per mode for the
+      TTMc kernel (auto_tune=True; "cached" keeps the winners on disk).
     device: CUDA unless the caller passes one (raises if no GPU is present).
     """
     cr = _validated_core_ranks(st, core_ranks)
@@ -224,7 +239,8 @@ def tucker_hooi(
 
     if method == "pallas":
         if planned is None:
-            planned = make_planned_tucker(st, cr, device=device)
+            planned = make_planned_tucker(st, cr, cfg=cfg, auto_tune=auto_tune, spec=spec,
+                                          device=device)
         factors, core, fits = planned.drive(
             factors, (norm_x_sq,), iters=iters, tol=tol, verbose=verbose, label="tucker_hooi")
         return TuckerState(factors=factors, core=core, fit_history=fits)

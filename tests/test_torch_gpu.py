@@ -3,8 +3,10 @@ against their plain versions (also at the wide ranks that need column
 slices, wider groups or smaller steps: CP rank 256 and 1,100, Tucker
 (100, 8, 100), TT (24, 24), (40, 48) and (100, 100); at tile_i = 8,192,
 which splits the MTTKRP and TTMc row counts into row parts; and on a
-tensor whose hot rows fill whole block ranges), and the CP-ALS, Tucker
-HOOI and TT-ALS paths on CUDA against the CPU path.  Marked `gpu`; they
+tensor whose hot rows fill whole block ranges; at the geometries the PMS
+may pick: blocks of 128 and 1,024 slots, tiles (1,024, 128, 512)), and the
+CP-ALS, Tucker HOOI and TT-ALS paths on CUDA, also with auto_tune=True,
+against the CPU path.  Marked `gpu`; they
 skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
@@ -262,4 +264,49 @@ def test_cuda_tt_fits_match_cpu(cuda):
     a = decompose(st, (3, 5), format="tt", iters=3, init_factors=init, device=cuda)
     b = decompose(st, (3, 5), format="tt", iters=3, init_factors=[c.cpu() for c in init],
                   device="cpu")
+    assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
+
+
+# Geometries the PMS's search may pick that the default never runs: blocks
+# of 128 and 1,024 slots, and unequal tiles (1,024 output rows).
+PMS_GEOMETRIES = {
+    "blk_128": MemoryControllerConfig(dma=DMAEngineConfig(blk=128)),
+    "blk_1024": MemoryControllerConfig(dma=DMAEngineConfig(blk=1024)),
+    "tiles_1024_128_512": MemoryControllerConfig(
+        cache=CacheEngineConfig(tile_i=1024, tile_j=128, tile_k=512)),
+}
+
+
+@pytest.mark.parametrize("geometry", sorted(PMS_GEOMETRIES))
+@pytest.mark.parametrize("preset", ["tiny", "4d_small", "5d_small"])
+def test_kernels_at_searched_geometries(cuda, preset, geometry):
+    """Each kernel against its float64 plain version at the geometry."""
+    st, cfg = frostt_like(preset), PMS_GEOMETRIES[geometry]
+    check_mttkrp(cuda, st, 16, cfg)
+    check_ttmc(cuda, st, TUCKER_RANKS[preset][0], cfg)
+    check_ttcore(cuda, st, TT_RANKS[preset][0], cfg)
+
+
+def cpu_init(fmt, st, rank):
+    cpu = torch.device("cpu")
+    if fmt == "cp":
+        gen = torch.Generator().manual_seed(1)
+        return [torch.randn((s, rank), generator=gen) / math.sqrt(rank) for s in st.shape]
+    if fmt == "tucker":
+        return init_tucker_factors(st.shape, rank, seed=1, device=cpu)
+    return init_tt_cores(st.shape, rank, seed=1, device=cpu)
+
+
+@pytest.mark.parametrize("fmt,rank", [("cp", 8), ("tucker", (3, 5, 2)), ("tt", (3, 5))])
+def test_auto_tune_runs_on_the_card(cuda, fmt, rank):
+    """decompose(auto_tune=True) launches the format's kernel at the PMS's
+    pick, and gives the fits of the same run on the CPU."""
+    st = frostt_like("tiny")
+    counter = {"cp": mttkrp_blocked, "tucker": ttmc_blocked, "tt": ttcore_blocked}[fmt]
+    init = cpu_init(fmt, st, rank)
+    before = counter.launches
+    a = decompose(st, rank, format=fmt, iters=3, init_factors=[f.to(cuda) for f in init],
+                  auto_tune=True, device=cuda)
+    assert counter.launches == before + 3 * st.nmodes
+    b = decompose(st, rank, format=fmt, iters=3, init_factors=init, auto_tune=True, device="cpu")
     assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL

@@ -18,7 +18,7 @@ from repro_torch.kernels.mttkrp import mttkrp_blocked
 from repro_torch.kernels.ops import make_planned_cp_als
 from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import ttmc_blocked
-from repro_torch.tt import make_planned_tt, tt_als
+from repro_torch.tt import make_planned_tt, tt_als, tt_svd
 from repro_torch.tucker import make_planned_tucker, tucker_hooi
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,7 +46,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.convert, repro_torch.kernels.build, "
-            "repro_torch.tucker, repro_torch.tt; "
+            "repro_torch.tucker, repro_torch.tt, repro_torch.core.pms, repro_torch.tune, "
+            "repro_torch.obs.calibrate; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -61,6 +62,7 @@ def no_cuda(monkeypatch):
 def test_entry_points_raise_without_gpu_and_device(no_cuda):
     st = tcoo.frostt_like("tiny")
     for call in (lambda: decompose(st, 4),
+                 lambda: decompose(st, 4, auto_tune=True),
                  lambda: make_planned_cp_als(st, 4),
                  lambda: plan_blocks(st, 0),
                  lambda: decompose(st, 4, format="tucker"),
@@ -68,12 +70,14 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
                  lambda: make_planned_tucker(st, (4, 4, 4)),
                  lambda: decompose(st, 4, format="tt"),
                  lambda: tt_als(st, (4, 4), method="reference"),
-                 lambda: make_planned_tt(st, (4, 4))):
+                 lambda: make_planned_tt(st, (4, 4)),
+                 lambda: tt_svd(st, (4, 4))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert len(decompose(st, 4, iters=1, device="cpu").fit_history) == 1
     assert len(decompose(st, 4, format="tucker", iters=1, device="cpu").fit_history) == 1
     assert len(decompose(st, 4, format="tt", iters=1, device="cpu").fit_history) == 1
+    assert all(c.device.type == "cpu" for c in tt_svd(st, (4, 4), device="cpu"))
 
 
 def test_cpu_run_launches_no_kernel():
