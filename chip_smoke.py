@@ -13,10 +13,13 @@ printing one JSON line:
   b  build    nvcc build of every kernel, seconds, ptxas report
   c  check    kernel vs plain version on 3-, 4- and 5-mode presets (at rank
               16, at rank 256, and at tile_i 8,192, which take row parts)
-              and on every mode of the NELL-2-size tensor; CUDA vs CPU
-              CP-ALS fits on a small tensor; kernel, plain and sweep timings,
-              and the MTTKRP kernel it replaced
-              (scripts/probe_kernels/mttkrp_pr17.cu) timed beside it
+              and on every mode of the NELL-2-size tensor; 20 launches per
+              mode on a hot-row tensor at ranks 16 and 256 in two
+              geometries, each within 1e-5 of float64; CUDA vs CPU CP-ALS
+              fits on a small tensor; kernel, plain and sweep timings, and
+              the MTTKRP kernel before its run sums were split into
+              sub-chains (scripts/probe_kernels/mttkrp_pr18.cu) timed
+              beside it
   d  main     decompose(st, 16, format="cp", iters=5, seed=0) with the launch
               counters reset just before and read just after
   e  check    TTMc kernel vs plain version on 3-, 4- and 5-mode presets with
@@ -47,6 +50,16 @@ printing one JSON line:
               held to phases d, f and h; a warm auto_tune="cached" call
               that evaluates no configuration; the calibration
               microbenchmarks and the block-sweep fit of the PMS's rates
+  j  slice    the non-planned methods on the same tensor: CP rank 16 from
+              phase d's initial factors by approach 1 and 2 on the remap
+              and copies layouts (sweep, MTTKRP and remap ms per mode, peak
+              memory, fits against phase d's, MTTKRP error against
+              float64, the paper's Table 1 traffic beside the measured
+              times); remap_stable against remap_radix per mode (pointer
+              budget 4,096, orders equal bit for bit); Tucker and TT
+              method="reference"; mttkrp_auto (a plan-cache miss, then a
+              hit), tucker_auto and tt_auto against their chunked float64
+              references; the plan cache cleared at the end
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -71,10 +84,24 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.api import decompose  # noqa: E402
 from repro_torch.core import pms  # noqa: E402
-from repro_torch.core.coo import frostt_like, synthetic_tensor  # noqa: E402
-from repro_torch.core.cp_als import fit_value  # noqa: E402
+from repro_torch.core.coo import frostt_like, synthetic_tensor, to_device  # noqa: E402
+from repro_torch.core.cp_als import (  # noqa: E402
+    LAYOUTS,
+    _initial_factors,
+    _sweep_remap,
+    _sweep_streams,
+    fit_value,
+)
+from repro_torch.core.hypergraph import approach1_traffic, approach2_traffic  # noqa: E402
 from repro_torch.core.hypergraph import stats as hg_stats  # noqa: E402
-from repro_torch.core.memctrl import CacheEngineConfig, GPUSpec, MemoryControllerConfig  # noqa: E402
+from repro_torch.core.mttkrp import hadamard_rows, mttkrp  # noqa: E402
+from repro_torch.core.remap import radix_digits, remap_radix, remap_stable  # noqa: E402
+from repro_torch.core.memctrl import (  # noqa: E402
+    CacheEngineConfig,
+    DMAEngineConfig,
+    GPUSpec,
+    MemoryControllerConfig,
+)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
@@ -83,7 +110,13 @@ from repro_torch.kernels.ops import (  # noqa: E402
     make_planned_mttkrp,
     make_planned_ttcore,
     make_planned_ttmc,
+    mttkrp_auto,
+    plan_cache_clear,
+    plan_cache_stats,
+    tt_auto,
+    tucker_auto,
 )
+from repro_torch.kernels.ref import ttcore_ref, ttmc_ref  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
 from repro_torch.kernels.tt import ttcore_blocked, ttcore_blocked_plain  # noqa: E402
 from repro_torch.kernels.ttm import kron_cols, ttmc_blocked, ttmc_blocked_plain  # noqa: E402
@@ -126,7 +159,7 @@ RANK = 16
 BIG_TILE = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=8192))
 # The MTTKRP and TTMc kernels that the current ones replaced, built and
 # timed beside them.
-EARLIER_MTTKRP = ROOT / "scripts" / "probe_kernels" / "mttkrp_pr17.cu"
+EARLIER_MTTKRP = ROOT / "scripts" / "probe_kernels" / "mttkrp_pr18.cu"
 EARLIER_TTMC = ROOT / "scripts" / "probe_kernels" / "ttmc_pr16.cu"
 # Widths that the kernels take in column slices or smaller steps, on the
 # presets (CP) and on WIDE_SHAPE (Tucker, TT): never shrunk to fit.
@@ -143,6 +176,18 @@ NELL2_SHAPE = (12_092, 9_184, 28_818)
 NELL2_NNZ = 76_879_419
 NELL2_SKEW = 1.1
 PRESETS = ("tiny", "4d_small", "5d_small")
+# A tensor whose hottest rows hold most of every block range (zipf 3 on
+# 2,000 rows), checked at ranks 16 and 256 in two geometries, HOT_LAUNCHES
+# launches per mode: the order of a hot row's float32 sums varies from
+# launch to launch, and each launch must stay within TOL_PRESET.
+HOT_SHAPE, HOT_NNZ, HOT_SKEW = (2_000, 300, 400), 50_000, 3.0
+HOT_RANKS = (16, 256)
+HOT_GEOMETRIES = {
+    "default": MemoryControllerConfig(),
+    "small_tiles_wide_blocks": MemoryControllerConfig(
+        cache=CacheEngineConfig(tile_i=8, tile_j=16, tile_k=4), dma=DMAEngineConfig(blk=640)),
+}
+HOT_LAUNCHES = 20
 # Kernel vs its plain version evaluated in float64 on the same float32
 # inputs: the largest error relative to each output column's max.  The kernel
 # sums in float32 with atomics, in a varying order; the error grows with the
@@ -179,6 +224,15 @@ PMS_MODES = {"mttkrp": (0, 1, 2), "ttmc": (0,), "tt": (0, 1)}
 # Fits of the auto-tuned runs against phases d, f and h: the same algorithm
 # on other plan geometries, float32 sums in another order.
 TOL_TUNED_FIT = 1e-4
+# Phase j: the compute patterns, the Remapper's pointer budget (4,096
+# pointers a pass: two passes on every NELL-2 mode), repetitions of the
+# per-mode timings, the reference methods' iterations, and the non-zeros
+# per step of the float64 MTTKRP reference.
+PATTERNS = ("approach1", "approach2")
+POINTER_BUDGET = 4096
+PATTERN_REPS = 3
+REF_ITERS = 2
+EXACT_CHUNK = 1 << 23
 
 
 def emit(obj: dict) -> None:
@@ -309,6 +363,31 @@ def reset_launches() -> None:
     ttcore_blocked.launches = 0
 
 
+def hot_rows(gen: torch.Generator) -> list[dict]:
+    """HOT_LAUNCHES launches of the MTTKRP kernel per mode of the hot-row
+    tensor, at each rank in HOT_RANKS and geometry in HOT_GEOMETRIES, each
+    held to the float64 plain version within TOL_PRESET."""
+    st = synthetic_tensor(HOT_SHAPE, HOT_NNZ, seed=0, skew=HOT_SKEW)
+    out = []
+    for rank in HOT_RANKS:
+        for label, cfg in HOT_GEOMETRIES.items():
+            ws = make_planned_cp_als(st, rank, cfg=cfg, device="cuda")
+            for m in range(st.nmodes):
+                plan = ws.plan_for(m)
+                facs = random_padded(plan, [rank_padded(rank)] * plan.n_in, gen)
+                exact = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
+                                             [f.double() for f in facs])
+                errs = [errors(mttkrp_blocked(plan, facs), exact)[1] for _ in range(HOT_LAUNCHES)]
+                worst = max(errs)
+                check(worst <= TOL_PRESET,
+                      f"hot rows rank {rank} {label} mode {m}: a launch's rel err {worst} > {TOL_PRESET}")
+                out.append({"rank": rank, "geometry": label, "mode": m, "launches": HOT_LAUNCHES,
+                            "max_rel_err": worst, "min_rel_err": min(errs),
+                            "max_row_nnz": int(st.mode_histogram(m).max())})
+            del ws
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a GPU",
@@ -354,6 +433,8 @@ def main() -> int:
                                            tol=TOL_PRESET,
                                            what=f"{preset} rank {rank} tile_i {plan.tile_i} mode {m}")})
             del ws
+
+    hot = hot_rows(gen)
 
     tiny = frostt_like("tiny")
     init = [torch.randn((s, RANK), generator=gen, device="cuda") / math.sqrt(RANK) for s in tiny.shape]
@@ -409,7 +490,7 @@ def main() -> int:
     # d's peak device memory counts only what decompose holds.
     del ws, plan, facs, lam, true, idx, val, norm_x_sq, init
     torch.cuda.empty_cache()
-    emit({"phase": "c", "presets": presets, "wide": wide, "tile_i_8192": big,
+    emit({"phase": "c", "presets": presets, "wide": wide, "tile_i_8192": big, "hot_rows": hot,
           "tiny_fit_gap_cuda_cpu": fit_gap, "earlier_kernel": str(EARLIER_MTTKRP.relative_to(ROOT)),
           "nell2_modes": modes, "tol_preset": TOL_PRESET, "tol_full": TOL_FULL})
 
@@ -443,6 +524,9 @@ def main() -> int:
     tt, tt_fits = tt_phases(st, gen)
     torch.cuda.empty_cache()
     pms_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen)
+    torch.cuda.empty_cache()
+    slice_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, [x["ms"] for x in modes],
+                torch.device("cuda", torch.cuda.current_device()))
 
     emit({"kernels": [{
         "name": "mttkrp_blocked",
@@ -932,6 +1016,176 @@ def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
           "stats_s": stats_s, "searches": searches,
           "timed": timed, "auto_tuned": tuned, "cached": cached, "calibration": calib,
           "tol_full": TOL_FULL, "tol_tuned_fit": TOL_TUNED_FIT})
+
+
+def exact_mttkrp(idx, val, facs, mode: int, rows: int) -> torch.Tensor:
+    """MTTKRP in float64 over the raw stream, EXACT_CHUNK non-zeros a step
+    (float64 atomics: a reference whose own rounding is negligible)."""
+    out = torch.zeros((rows, facs[0].shape[1]), dtype=torch.float64, device=val.device)
+    f64 = [f.double() for f in facs]
+    for z0 in range(0, val.shape[0], EXACT_CHUNK):
+        i = idx[z0: z0 + EXACT_CHUNK]
+        out.index_add_(0, i[:, mode], hadamard_rows(i, val[z0: z0 + EXACT_CHUNK].double(), f64, mode))
+    return out
+
+
+def host_s(fn):
+    """(result, seconds) of fn() ending in a synchronize, by the host clock."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def slice_phase(st, main_fits: dict, planned_ms: list[float], dev: torch.device) -> None:
+    """Phase j on the NELL-2-size tensor `st`, on the card `dev`: the
+    Tensor Remapper, the compute patterns beside the planned kernel
+    (`planned_ms`, phase c), CP-ALS by approach 1 and 2 on both layouts
+    (fits against phase d's in `main_fits`), Tucker and TT
+    method="reference", and the one-shot dispatchers with their plan
+    cache."""
+    phase_t0 = time.perf_counter()
+    nm, shape = st.nmodes, st.shape
+    idx, val = to_device(st, dev)
+
+    # The Remapper on the stream as generated: the stable sort against the
+    # radix passes of at most POINTER_BUDGET bins.
+    remap = []
+    for m in range(nm):
+        a = remap_stable(idx, val, m)
+        b = remap_radix(idx, val, m, shape[m], POINTER_BUDGET)
+        equal = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(equal, f"remap_radix's order differs from remap_stable's on mode {m}")
+        del a, b
+        remap.append({"mode": m, "nbins": shape[m], "passes": radix_digits(shape[m], POINTER_BUDGET),
+                      "stable_ms": cuda_ms(lambda: remap_stable(idx, val, m), PATTERN_REPS),
+                      "radix_ms": cuda_ms(lambda: remap_radix(idx, val, m, shape[m], POINTER_BUDGET),
+                                          PATTERN_REPS),
+                      "orders_equal": equal})
+
+    # The compute patterns per mode, on the stream sorted by the mode, from
+    # phase d's initial factors; the remap from the previous mode's order.
+    facs = _initial_factors(st, RANK, None, 0, dev)
+    streams = [remap_stable(idx, val, m)[:2] for m in range(nm)]
+    table = []
+    for m in range(nm):
+        i, v = streams[m]
+        exact = exact_mttkrp(i, v, facs, m, shape[m])
+        row = {"mode": m, "planned_ms": planned_ms[m],
+               "remap_ms": cuda_ms(lambda: remap_stable(*streams[m - 1], m), PATTERN_REPS),
+               "approach1_model_bytes": approach1_traffic(st, m, RANK).bytes(),
+               "approach2_model_bytes": approach2_traffic(st, m, RANK).bytes()}
+        for method in PATTERNS:
+            got = mttkrp(i, v, facs, m, shape[m], method=method)
+            row[f"{method}_max_rel_err"] = errors(got, exact)[1]
+            del got
+            row[f"{method}_ms"] = cuda_ms(lambda: mttkrp(i, v, facs, m, shape[m], method=method),
+                                          PATTERN_REPS)
+        table.append(row)
+        del exact
+    norm_x_sq = torch.tensor(float((st.values.astype("float64") ** 2).sum()), device=dev)
+    sweeps = {}
+    for method in PATTERNS:
+        for layout in LAYOUTS:
+            kw = dict(shape=shape, method=method, first=False)
+            if layout == "copies":
+                sweeps[method, layout] = cuda_ms(lambda: _sweep_streams(facs, streams, norm_x_sq, **kw),
+                                                 SWEEP_REPS)
+            else:  # the carried stream is sorted by the last mode
+                sweeps[method, layout] = cuda_ms(lambda: _sweep_remap(facs, *streams[-1], norm_x_sq, **kw),
+                                                 SWEEP_REPS)
+    del streams, idx, val, facs, norm_x_sq
+    torch.cuda.empty_cache()
+
+    # CP-ALS by each pattern and layout, as a user calls it.
+    runs = []
+    for method in PATTERNS:
+        for layout in LAYOUTS:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            state, decompose_s = host_s(lambda: decompose(st, RANK, method=method, layout=layout,
+                                                          iters=ITERS, seed=0, device=dev))
+            fits = state.fit_history
+            launched = mttkrp_blocked.launches + ttmc_blocked.launches + ttcore_blocked.launches
+            check(launched == 0, f"{method}/{layout} launched {launched} kernels")
+            check(len(fits) == ITERS and all(math.isfinite(f) for f in fits)
+                  and all(b >= a - FIT_DROP for a, b in zip(fits, fits[1:])),
+                  f"{method}/{layout} fits {fits}")
+            gap = max(abs(a - b) for a, b in zip(fits, main_fits["cp"]))
+            check(gap <= TOL_TUNED_FIT, f"{method}/{layout} fits {fits} against phase d's {main_fits['cp']}")
+            runs.append({"method": method, "layout": layout, "sweep_ms": sweeps[method, layout],
+                         "decompose_s": decompose_s,
+                         "peak_device_bytes": torch.cuda.max_memory_allocated(), "fits": fits,
+                         "max_fit_gap_phase_d": gap})
+            del state
+            torch.cuda.empty_cache()
+
+    # Tucker and TT by their reference methods: one iteration and two, the
+    # difference one sweep.
+    reference = []
+    for fmt, ranks, extra, phase in (("tucker", CORE_RANKS, {}, "f"),
+                                     ("tt", TT_RANKS, {"init": "random"}, "h")):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        one, one_s = host_s(lambda: decompose(st, ranks, format=fmt, method="reference", iters=1,
+                                              seed=0, device=dev, **extra))
+        del one
+        state, two_s = host_s(lambda: decompose(st, ranks, format=fmt, method="reference",
+                                                iters=REF_ITERS, seed=0, device=dev, **extra))
+        fits = state.fit_history
+        launched = mttkrp_blocked.launches + ttmc_blocked.launches + ttcore_blocked.launches
+        check(launched == 0, f"{fmt} reference launched {launched} kernels")
+        check(len(fits) == REF_ITERS and all(math.isfinite(f) for f in fits)
+              and all(b >= a - FIT_DROP for a, b in zip(fits, fits[1:])), f"{fmt} reference fits {fits}")
+        check(fmt != "tt" or fits[-1] > fits[0], f"TT reference fit did not rise: {fits}")
+        reference.append({"format": fmt, "ranks": list(ranks), "iters": REF_ITERS,
+                          "sweep_ms": (two_s - one_s) * 1e3, "decompose_s": two_s,
+                          "peak_device_bytes": torch.cuda.max_memory_allocated(), "fits": fits,
+                          f"phase_{phase}_fits": main_fits[fmt][:REF_ITERS],
+                          "max_fit_gap": max(abs(a - b) for a, b in zip(fits, main_fits[fmt]))})
+        del state
+        torch.cuda.empty_cache()
+
+    # The one-shot dispatchers: a plan-cache miss, then a hit.
+    plan_cache_clear()
+    reset_launches()
+    idx, val = to_device(st, dev)
+    facs = _initial_factors(st, RANK, None, 0, dev)
+    first, first_s = host_s(lambda: mttkrp_auto(st, facs, 0, device=dev))
+    second, second_s = host_s(lambda: mttkrp_auto(st, facs, 0, device=dev))
+    stats = plan_cache_stats()
+    check(mttkrp_blocked.launches == 2 and stats["by_kind"]["mttkrp"] == {"hits": 1, "misses": 1},
+          f"mttkrp_auto: {mttkrp_blocked.launches} launches, cache {stats}")
+    exact = exact_mttkrp(idx, val, facs, 0, shape[0])
+    mttkrp_err = max(errors(first, exact)[1], errors(second, exact)[1])
+    check(mttkrp_err <= TOL_FULL, f"mttkrp_auto rel err {mttkrp_err} > {TOL_FULL}")
+    del first, second, exact
+    tfacs = init_tucker_factors(shape, CORE_RANKS, seed=0, device=dev)
+    y, tucker_s = host_s(lambda: tucker_auto(st, tfacs, 0, device=dev))
+    tucker_err = errors(y, ttmc_ref(idx, val.double(), [f.double() for f in tfacs], 0, shape[0]))[1]
+    check(ttmc_blocked.launches == 1 and tucker_err <= TOL_FULL,
+          f"tucker_auto: {ttmc_blocked.launches} launches, rel err {tucker_err}")
+    del y
+    cores = init_tt_cores(shape, TT_RANKS, seed=0, device=dev)
+    b, tt_s = host_s(lambda: tt_auto(st, cores, 0, device=dev))
+    tt_err = errors(b, ttcore_ref(idx, val.double(), [c.double() for c in cores], 0, shape[0]))[1]
+    check(ttcore_blocked.launches == 1 and tt_err <= TOL_FULL,
+          f"tt_auto: {ttcore_blocked.launches} launches, rel err {tt_err}")
+    dispatch = {"mttkrp_auto_first_s": first_s, "mttkrp_auto_second_s": second_s,
+                "mttkrp_auto_max_rel_err": mttkrp_err, "tucker_auto_s": tucker_s,
+                "tucker_auto_max_rel_err": tucker_err, "tt_auto_s": tt_s, "tt_auto_max_rel_err": tt_err,
+                "plan_cache_stats": plan_cache_stats(),
+                "launches": {"mttkrp_blocked": mttkrp_blocked.launches,
+                             "ttmc_blocked": ttmc_blocked.launches,
+                             "ttcore_blocked": ttcore_blocked.launches}}
+    del b, idx, val, facs, tfacs, cores
+    plan_cache_clear()  # no 1.7 GB plan outlives the phase
+    torch.cuda.empty_cache()
+    emit({"phase": "j", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "rank": RANK, "iters": ITERS, "pointer_budget": POINTER_BUDGET, "remap": remap,
+          "mttkrp_per_mode": table, "cp_runs": runs, "reference": reference, "dispatch": dispatch,
+          "tol_full": TOL_FULL, "tol_fit_gap": TOL_TUNED_FIT})
 
 
 if __name__ == "__main__":

@@ -125,8 +125,8 @@ EDITS = {
                 "__global__ void __launch_bounds__(kThreads, 8) mttkrp_blocked_kernel")],
     # The range-sort kernel: no reductions, the sums kept alive by a store
     # that never runs.
-    "rows_no_flush": [("atomicAdd(reinterpret_cast<float4*>(dst), acc[k]);",
-                       f"if (acc[k].x == {NEVER}) dst[0] = acc[k].y;")],
+    "rows_no_flush": [("atomicAdd(reinterpret_cast<float4*>(dst), v);",
+                       f"if (v.x == {NEVER}) dst[0] = v.y;")],
     # Numbers made from the row indices in place of the factor loads.
     "rows_no_loads": [("x[n][k] = __ldg(reinterpret_cast<const float4*>(src));",
                        "x[n][k] = make_float4(static_cast<float>(in[n]), 1.0f, 2.0f, 3.0f);")],
@@ -164,9 +164,9 @@ EDITS = {
         ("      __syncthreads();  // the chunk's rows are done; the fields are free; the warps' runs are kept\n",
          "      __syncthreads();  // the chunk's rows are done; the fields are free; the warps' runs are kept\n"
          "      PHASE(3)\n"),
-        ("    b = e;\n  }\n  if (pending >= 0",
+        ("    b = e;\n  }\n  if (threadIdx.x < 32) {",
          "    b = e;\n  }\n  if (threadIdx.x == 0) {\n    for (int i = 0; i < 4; ++i) "
-         "atomicAdd(&g_phase_cycles[i], ph[i]);\n  }\n  if (pending >= 0"),
+         "atomicAdd(&g_phase_cycles[i], ph[i]);\n  }\n  if (threadIdx.x < 32) {"),
         ("}  // namespace\n\n// Launch on",
          "}  // namespace\n\nextern \"C\" int mttkrp_probe_phase_cycles(unsigned long long* host) {\n"
          "  cudaError_t err = cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(g_phase_cycles));\n"

@@ -58,9 +58,22 @@ class SparseTensor:
     def density(self) -> float:
         return self.nnz / float(np.prod([float(s) for s in self.shape]))
 
+    def nbytes(self, index_bytes: int = 4, value_bytes: int = 4) -> int:
+        """Size of the COO stream, |T| elements (the paper's tensor-size metric)."""
+        return self.nnz * (self.nmodes * index_bytes + value_bytes)
+
     def mode_histogram(self, mode: int) -> np.ndarray:
         """Non-zeros per coordinate of `mode` (hypergraph vertex degrees)."""
         return np.bincount(self.indices[:, mode], minlength=self.shape[mode])
+
+    def sorted_by(self, mode: int) -> "SparseTensor":
+        """Stable sort by one mode's coordinates (the host-side remap)."""
+        order = np.argsort(self.indices[:, mode], kind="stable")
+        return SparseTensor(self.indices[order], self.values[order], self.shape)
+
+    def is_sorted_by(self, mode: int) -> bool:
+        c = self.indices[:, mode]
+        return bool(np.all(c[1:] >= c[:-1]))
 
     def fingerprint(self) -> str:
         """Content hash of (shape, indices, values): the same hex string as

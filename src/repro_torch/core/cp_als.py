@@ -1,22 +1,36 @@
-"""CP-ALS driver (paper Alg. 1) on the planned MTTKRP kernel.
+"""CP-ALS driver (paper Alg. 1).  Counterpart of `repro.core.cp_als`.
 
-Counterpart of `repro.core.cp_als` for its main path, `method="pallas"`:
-one BlockPlan per output mode is built once (`kernels.ops.PlannedCPALS`)
-and every iteration runs, for each mode, the MTTKRP kernel -> gram ->
-Cholesky solve -> normalize, then the fit.  PyTorch runs eagerly, so the
-sweep is a plain Python loop over modes where the reference jits it.
+Every iteration runs, for each mode, an MTTKRP -> gram -> Cholesky solve ->
+normalize, then the fit.  The MTTKRP comes from one of:
+  * `method="pallas"` (the default, the main path): the planned MTTKRP
+    kernel on one BlockPlan per output mode, built once
+    (`kernels.ops.PlannedCPALS`);
+  * `method="approach1"` / `"approach2"`: the paper's compute patterns
+    (`core.mttkrp`) on the raw stream, laid out by `layout="remap"` (one
+    stream, re-sorted by the Tensor Remapper before each mode,
+    `_sweep_remap`) or `layout="copies"` (one sorted copy per mode,
+    `_sweep_streams`);
+  * `mttkrp_fn=`: any callable with the signature of `core.mttkrp.mttkrp`'s
+    first five arguments, run in the same per-mode loop on the layout's
+    streams (`PlannedCPALS.mttkrp_fn` is the planned kernel as such a
+    callable).
+PyTorch runs eagerly, so a sweep is a plain Python loop over modes where the
+reference jits it; the port takes no `jit_sweep=`.  The reference's default
+method is "approach1"; the port's is "pallas", the path its callers mean.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 
 from ..device import resolve_device
 from .coo import SparseTensor, norm_sq, to_device
-from .loop import check_workspace, given_factors
+from .loop import check_planned_method, check_workspace, finish_iter, given_factors
+from .mttkrp import mttkrp
+from .remap import remap_stable
 
 __all__ = [
     "CPState",
@@ -124,6 +138,50 @@ def _update_mode(mt: torch.Tensor, factors: list, m: int, first: bool):
     return factors, lam
 
 
+METHODS = ("pallas", "approach1", "approach2")
+LAYOUTS = ("remap", "copies")
+
+
+def _mode_mttkrp(method: str, mttkrp_fn: Callable | None) -> Callable:
+    """The per-mode MTTKRP of a sweep: the caller's `mttkrp_fn`, else the
+    compute pattern `method` on a stream sorted by the output mode."""
+    if mttkrp_fn is not None:
+        return mttkrp_fn
+    return lambda idx, val, facs, m, rows: mttkrp(idx, val, facs, m, rows, method=method)
+
+
+def _sweep_streams(factors, streams, norm_x_sq, *, shape, method: str, first: bool,
+                   mttkrp_fn: Callable | None = None):
+    """One ALS iteration over per-mode sorted streams (layout='copies'):
+    every mode's MTTKRP on its own copy -> gram -> solve -> normalize, then
+    the fit on the last copy.  `streams[m]` is the (indices, values) stream
+    sorted by mode m.  Returns (factors, lam, fit)."""
+    do_mttkrp = _mode_mttkrp(method, mttkrp_fn)
+    factors = list(factors)
+    lam = None
+    for m in range(len(shape)):
+        idx, val = streams[m]
+        factors, lam = _update_mode(do_mttkrp(idx, val, factors, m, shape[m]), factors, m, first)
+    idx, val = streams[-1]
+    return factors, lam, fit_value(idx, val, factors, lam, norm_x_sq)
+
+
+def _sweep_remap(factors, idx, val, norm_x_sq, *, shape, method: str, first: bool,
+                 mttkrp_fn: Callable | None = None):
+    """One ALS iteration on a single stream (layout='remap'): before each
+    mode the Tensor Remapper re-sorts the carried stream by that mode on the
+    device (Alg. 5), then MTTKRP -> gram -> solve -> normalize; the fit on
+    the last order.  Returns (factors, lam, indices, values, fit), the
+    stream sorted by the last mode, to be carried into the next sweep."""
+    do_mttkrp = _mode_mttkrp(method, mttkrp_fn)
+    factors = list(factors)
+    lam = None
+    for m in range(len(shape)):
+        idx, val, _ = remap_stable(idx, val, m)
+        factors, lam = _update_mode(do_mttkrp(idx, val, factors, m, shape[m]), factors, m, first)
+    return factors, lam, idx, val, fit_value(idx, val, factors, lam, norm_x_sq)
+
+
 def _initial_factors(st: SparseTensor, rank: int, init_factors, seed: int,
                      device: torch.device) -> list[torch.Tensor]:
     if init_factors is not None:
@@ -140,18 +198,33 @@ def cp_als(
     rank: int,
     *,
     iters: int = 10,
+    method: str = "pallas",
+    layout: str = "remap",
     tol: float | None = None,
     init_factors: Sequence | None = None,
     seed: int = 0,
     device: str | torch.device | None = None,
+    mttkrp_fn: Callable | None = None,
     planned=None,
     auto_tune: bool | str = False,
     spec="default",
     cfg=None,
     verbose: bool = False,
 ) -> CPState:
-    """Run CP-ALS on the planned MTTKRP kernel.
+    """Run CP-ALS.
 
+    method: 'pallas' (the default) - the planned MTTKRP kernel, one
+      BlockPlan per output mode built once (`make_planned_cp_als`) and
+      reused by every iteration; 'approach1' / 'approach2' - the paper's
+      compute patterns (Sec. 3) on the raw stream on `device`.
+    layout: for 'approach1' / 'approach2' and `mttkrp_fn`: 'remap' - one
+      stream, sorted by mode 0 once and re-sorted on the device before each
+      mode (Alg. 5); 'copies' - one sorted copy per mode (more device
+      memory, no remap).  The planned path ignores it: its per-mode plans
+      are the copies.
+    mttkrp_fn: a callable (indices, values, factors, mode, out_rows) ->
+      (I_mode, R) that replaces the method's MTTKRP, run in the per-mode
+      loop on the layout's streams (e.g. `PlannedCPALS.mttkrp_fn`).
     init_factors: one (I_m, rank) array or tensor per mode.  Without it the
       factors are drawn as randn / sqrt(rank) from a
       `torch.Generator(device).manual_seed(seed)`; these numbers differ from
@@ -168,15 +241,42 @@ def cp_als(
     """
     from ..kernels.ops import PlannedCPALS, make_planned_cp_als  # kernels build on core
 
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}: expected 'remap' or 'copies'")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}: expected 'pallas', 'approach1' or 'approach2'")
+    check_planned_method(method, planned)
+    if planned is not None and mttkrp_fn is not None:
+        raise ValueError("mttkrp_fn replaces the planned kernel; the planned workspace would be "
+                         "silently ignored (pass planned.mttkrp_fn as mttkrp_fn instead)")
     device = resolve_device(device)
     factors = _initial_factors(st, rank, init_factors, seed, device)
-    if planned is None:
-        planned = make_planned_cp_als(st, rank, cfg=cfg, auto_tune=auto_tune, spec=spec,
-                                      device=device)
-    else:
-        check_workspace(planned, PlannedCPALS, {"shape": st.shape, "rank": rank}, device)
-    idx, val = to_device(st, device)
     norm_x_sq = torch.tensor(norm_sq(st), dtype=torch.float32, device=device)
-    factors, lam, fits = planned.drive(
-        factors, (idx, val, norm_x_sq), iters=iters, tol=tol, verbose=verbose, label="cp_als")
+    if method == "pallas" and mttkrp_fn is None:
+        if planned is None:
+            planned = make_planned_cp_als(st, rank, cfg=cfg, auto_tune=auto_tune, spec=spec,
+                                          device=device)
+        else:
+            check_workspace(planned, PlannedCPALS, {"shape": st.shape, "rank": rank}, device)
+        idx, val = to_device(st, device)
+        factors, lam, fits = planned.drive(
+            factors, (idx, val, norm_x_sq), iters=iters, tol=tol, verbose=verbose, label="cp_als")
+        return CPState(factors=factors, lam=lam, fit_history=fits)
+
+    idx, val = to_device(st, device)
+    if layout == "copies":
+        streams = [remap_stable(idx, val, m)[:2] for m in range(st.nmodes)]
+        del idx, val
+    else:  # one stream, sorted by the previous output mode
+        idx, val, _ = remap_stable(idx, val, 0)
+    fits: list[float] = []
+    lam = None
+    for it in range(iters):
+        kw = dict(shape=st.shape, method=method, first=(it == 0), mttkrp_fn=mttkrp_fn)
+        if layout == "copies":
+            factors, lam, fit = _sweep_streams(factors, streams, norm_x_sq, **kw)
+        else:
+            factors, lam, idx, val, fit = _sweep_remap(factors, idx, val, norm_x_sq, **kw)
+        if finish_iter(fits, fit, it, tol, verbose, "cp_als"):
+            break
     return CPState(factors=factors, lam=lam, fit_history=fits)

@@ -1,7 +1,7 @@
 """Host-side per-iteration bookkeeping and argument contracts shared by the
-drivers.  Counterpart of `finish_iter` (without the obs events) and
-`check_workspace` in `repro.core.loop`, and of the drivers' shared handling
-of given initial factors."""
+drivers.  Counterpart of `finish_iter` (without the obs events),
+`check_planned_method` and `check_workspace` in `repro.core.loop`, and of
+the drivers' shared handling of given initial factors."""
 from __future__ import annotations
 
 import math
@@ -11,7 +11,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-__all__ = ["check_workspace", "finish_iter", "given_factors"]
+__all__ = ["check_planned_method", "check_workspace", "finish_iter", "given_factors"]
 
 
 def given_factors(init_factors: Sequence, shapes: Sequence[tuple[int, ...]],
@@ -28,6 +28,17 @@ def given_factors(init_factors: Sequence, shapes: Sequence[tuple[int, ...]],
             raise ValueError(f"initial {what} {m} has shape {tuple(t.shape)}, expected {tuple(shape)}")
         out.append(t.to(device=device, dtype=torch.float32))
     return out
+
+
+def check_planned_method(method: str, planned) -> None:
+    """A workspace serves only the planned path: raise where one is passed
+    with another method, which would otherwise ignore it silently.  (The
+    reference's check also names its sharded path, which the port does not
+    have yet.)"""
+    if planned is not None and method != "pallas":
+        raise ValueError(
+            f"a planned workspace was passed but method is {method!r}, not 'pallas'; "
+            f"the workspace would be silently ignored")
 
 
 def check_workspace(planned, cls: type, built_for: dict, device: torch.device) -> None:

@@ -10,9 +10,10 @@ what their own layout says.  So the fit check here is shared memory per
 CTA, computed from each kernel's layout (`KernelLaunch`):
 
   * MTTKRP (`csrc/mttkrp.cu`, `smem_bytes` and the constants at the top):
-    the warps' first and last runs (2 x 8 warps x G lanes x NQ quads of 16
-    bytes), 2,048 sorted slots (16 bytes each for 2 input modes, 24 for 3
-    or 4) and one int of row counts per tile row;
+    the warps' first and last runs and the CTA's carried run ((2 x 8 warps
+    + 1) x G lanes x NQ quads of 16 bytes), 2,048 sorted slots (16 bytes
+    each for 2 input modes, 24 for 3 or 4) and one int of row counts per
+    tile row;
   * TTMc (`csrc/ttmc.cu`): the warps' edges (8 x 2 x NQ x 32 float4s) and
     the row counts, beside a static 16 KB permutation;
   * TT-core (`csrc/ttcore.cu`, `launch`): a rows x slice tile of partial
@@ -55,7 +56,7 @@ _QUAD = 4  # floats in a quad (one float4)
 _MAX_ROWS = 4096  # MTTKRP and TTMc: tile rows per CTA before row parts
 _MTTKRP_SORT_SLOTS = 2048
 _MTTKRP_SORTED_BYTES = {2: 16, 3: 24, 4: 24}  # sizeof(Sorted<N_IN>)
-_MTTKRP_STATIC = (2 * _WARPS + _WARPS) * 4  # s_run_row, s_warp
+_MTTKRP_STATIC = (2 * _WARPS + 1 + _WARPS) * 4  # s_run_row (with the carry's row), s_warp
 _TTMC_STATIC = 8192 * 2 + 2 * _WARPS * 4 + _WARPS * 4  # s_perm, s_edge_row, s_warp
 _TT_CHUNK = _THREADS  # most slots per step
 _TT_TILE_BYTES = 64 * 1024  # largest tile before row parts
@@ -167,7 +168,7 @@ class MemoryControllerConfig:
         else:
             g, nq = 32, next((q for q in (2, 4) if nquads <= 32 * q), 8)
         parts, rows = self._row_parts()
-        dyn = (2 * _WARPS * g * nq * 16 + _MTTKRP_SORT_SLOTS * _MTTKRP_SORTED_BYTES[n_in]
+        dyn = ((2 * _WARPS + 1) * g * nq * 16 + _MTTKRP_SORT_SLOTS * _MTTKRP_SORTED_BYTES[n_in]
                + rows * 4)
         smem = dyn + _MTTKRP_STATIC
         return KernelLaunch(smem, parts, _ceil_div(nquads, g * nq), smem <= spec.smem_per_block,

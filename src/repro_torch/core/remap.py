@@ -1,8 +1,22 @@
-"""Tensor Remapper: the two-level tile remap that produces the MTTKRP
-kernel's memory layout (`BlockPlan`), built with torch ops on the device.
+"""Tensor Remapper (paper Alg. 5): the stream remaps of the compute
+patterns, and the two-level tile remap that produces the kernels' memory
+layout (`BlockPlan`), all built with torch ops on the device.
 
-Counterpart of `repro.core.remap` (`plan_blocks` and its per-group loop
-reference).  The build is the reference's vectorized algorithm step for
+Counterpart of `repro.core.remap`:
+  * `pointer_table`         - the paper's per-bin address pointers (a
+                              counting sort's histogram and offsets);
+  * `remap_stable`          - a stable sort of the COO stream by one mode,
+                              the remap approach 1 runs before each mode;
+  * `remap_pointer_machine` - the pointer table emulated element by element
+                              on the host (numpy), to certify the sort;
+  * `remap_radix`           - `radix_digits` stable counting-sort passes of
+                              at most `pointer_budget` bins each, for
+                              pointer tables larger than on-chip memory;
+  * `plan_blocks`           - the tile-level BlockPlan layout, and
+                              `plan_blocks_reference`, its per-group loop.
+
+A stable sort has exactly one result, whichever library runs it, so each
+remap gives the reference's order bit for bit.  The build is the reference's vectorized algorithm step for
 step — mixed-radix group key, one stable argsort, cumsum of padded group
 sizes, one scatter per stream array, `repeat_interleave` for block
 metadata — so it returns the same arrays as `repro.core.remap.plan_blocks`
@@ -16,6 +30,7 @@ import dataclasses
 import math
 import os
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -29,8 +44,82 @@ __all__ = [
     "plan_blocks",
     "plan_blocks_reference",
     "plans_validated",
+    "pointer_table",
+    "radix_digits",
+    "remap_pointer_machine",
+    "remap_radix",
+    "remap_stable",
     "validate_plan",
 ]
+
+
+def pointer_table(coords: torch.Tensor, nbins: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paper's address-pointer table: per-bin base addresses.
+
+    Returns int32 (offsets, counts): offsets[b] is where bin b's first
+    element goes (the exclusive prefix sum of the histogram)."""
+    counts = torch.bincount(coords.to(torch.int64), minlength=nbins)[:nbins].to(torch.int32)
+    offsets = torch.zeros_like(counts)
+    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int32)[:-1]
+    return offsets, counts
+
+
+def remap_stable(indices: torch.Tensor, values: torch.Tensor, mode: int):
+    """Stable sort of the COO stream by one mode's coordinates, on the
+    stream's device: the order the paper's streaming counting sort gives
+    (stability keeps the FIFO order of equal coordinates).
+    Returns (indices_sorted, values_sorted, perm)."""
+    perm = torch.argsort(indices[:, mode], stable=True)
+    return indices[perm], values[perm], perm
+
+
+def remap_pointer_machine(indices: np.ndarray, values: np.ndarray, mode: int, nbins: int):
+    """The Tensor Remapper emulated as the paper states it: stream the
+    elements one by one, looking up and bumping the output coordinate's
+    address pointer (Alg. 5 lines 3-6).  Host numpy; the tests use it to
+    certify that `remap_stable` gives the same layout."""
+    coords = indices[:, mode]
+    counts = np.bincount(coords, minlength=nbins)
+    ptr = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    out_idx = np.empty_like(indices)
+    out_val = np.empty_like(values)
+    for z in range(indices.shape[0]):  # the element-wise store stream
+        c = coords[z]
+        p = ptr[c]
+        out_idx[p] = indices[z]
+        out_val[p] = values[z]
+        ptr[c] = p + 1
+    return out_idx, out_val
+
+
+def radix_digits(nbins: int, pointer_budget: int) -> int:
+    """Counting-sort passes so that pointer_budget**ndigits >= nbins, in
+    integer arithmetic (the float form ceil(log(nbins) / log(budget)) is one
+    pass too many at exact powers: log(64) / log(4) = 3.0000000000000004)."""
+    if pointer_budget < 2:
+        raise ValueError(f"need at least two bins per pass, got pointer_budget={pointer_budget}")
+    ndigits, span = 1, pointer_budget
+    while span < nbins:
+        span *= pointer_budget
+        ndigits += 1
+    return ndigits
+
+
+def remap_radix(indices: torch.Tensor, values: torch.Tensor, mode: int, nbins: int,
+                pointer_budget: int):
+    """The remap for pointer tables larger than on-chip memory (paper Sec.
+    3.1: a 10 M-coordinate mode needs 40 MB of pointers): radix_digits(nbins,
+    budget) stable counting-sort passes, least significant digit first, with
+    at most `pointer_budget` pointers live per pass.  Gives `remap_stable`'s
+    order.  Returns (indices_sorted, values_sorted, order)."""
+    ndigits = radix_digits(max(nbins, 2), pointer_budget)
+    key = indices[:, mode]
+    order = torch.arange(key.shape[0], device=key.device)
+    for _ in range(ndigits):
+        p = torch.argsort(key % pointer_budget, stable=True)  # one pass of <= budget bins
+        order = order[p]
+        key = key[p] // pointer_budget
+    return indices[order], values[order], order
 
 
 @dataclasses.dataclass

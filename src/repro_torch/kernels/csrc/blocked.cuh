@@ -135,10 +135,12 @@ int dynamic_budget(Kernel kernel, int device, size_t* bytes) {
 
 // Launch `kernel` with `smem` bytes of dynamic shared memory on `stream`:
 // at least one wave of CTAs over all slices, and ranges of at most
-// kBlocksPerCta blocks; one CTA per (range, slice).  Returns 0, -1 when the
-// shared memory does not fit in a CTA, else a cudaError_t.
+// kBlocksPerCta blocks, but of at least min_blocks (<= kBlocksPerCta) where
+// that makes less than a wave; one CTA per (range, slice).  Returns 0, -1
+// when the shared memory does not fit in a CTA, else a cudaError_t.
 template <class Kernel, class Args>
-int launch_ranges(Kernel kernel, const Args& a, size_t smem, int device, cudaStream_t stream) {
+int launch_ranges(Kernel kernel, const Args& a, size_t smem, int device, cudaStream_t stream,
+                  long long min_blocks = 1) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -158,6 +160,8 @@ int launch_ranges(Kernel kernel, const Args& a, size_t smem, int device, cudaStr
   long long ranges = static_cast<long long>(sms) * per_sm / a.slices;
   const long long short_ranges = (a.nblocks + kBlocksPerCta - 1) / kBlocksPerCta;
   if (ranges < short_ranges) ranges = short_ranges;
+  const long long long_ranges = (a.nblocks + min_blocks - 1) / min_blocks;
+  if (ranges > long_ranges) ranges = long_ranges;
   if (ranges < 1) ranges = 1;
   if (ranges > a.nblocks) ranges = a.nblocks;
   if (ranges * a.slices > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);

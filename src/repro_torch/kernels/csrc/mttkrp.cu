@@ -30,7 +30,9 @@
 //   * Ranges.  A mode has only 36-113 output-tile runs at NELL-2 size, too
 //     few for 132 SMs, so CTAs take contiguous ranges of plan blocks, at
 //     most kBlocksPerCta (64) each (launch_ranges in blocked.cuh): many
-//     short ranges, so no CTA holds a long tail.
+//     short ranges, so no CTA holds a long tail.  A plan too small for a
+//     wave of 64-block ranges still gets ranges of at least
+//     kMinBlocksPerCta (8) blocks (see "Sum order").
 //   * Sorted fields in shared memory.  A CTA counting-sorts the real
 //     (non-zero-value) slots of each output tile's part of its range by
 //     tile row, kSortSlots slots at a time (sort_pass in blocked.cuh, shared
@@ -60,10 +62,12 @@
 //     of shuffles joins the groups' runs in order within each warp, adding
 //     each run that ends inside to the output; the warps' first and last
 //     runs go to shared memory, and warp 0 joins them the same way while
-//     the other warps count the next chunk.  So a hot row that fills a
-//     whole chunk reaches the output once per chunk.  Walking the edges in
-//     turn instead cost 0.5 ms a mode (PERF.md, Findings).  There is no
-//     tile, no shared-memory atomic per product, and no flush.
+//     the other warps count the next chunk (walking the edges in turn
+//     instead cost 0.5 ms a mode; PERF.md, Findings).  Warp 0 keeps the
+//     chunk's last run as the CTA's carry (in shared memory) and joins the
+//     next chunk's runs onto it, so a hot row that fills whole chunks
+//     reaches the output once per block range.  There is no tile, no
+//     shared-memory atomic per product, and no flush.
 //   * Any tile_i.  The row counts take tile_i ints of shared memory; past
 //     kMaxRows rows the tile splits into row parts, one CTA each, and a CTA
 //     keeps only the slots of its rows.  At tile_i 256 there is one part.
@@ -71,12 +75,32 @@
 //     2, 4 or kMaxQuads quads; past 32 * kMaxQuads quads (1,024 columns) the
 //     row splits into column slices, one CTA each, which re-read the stream
 //     fields and redo the sort, but copy nothing.
-//   * Sum order.  A float32 chain per output element within one CTA holds
-//     at most one group's part of a chunk (32 slots at rank 16), then the
-//     runs of one row in group and warp order.  The reductions and the
-//     atomic counting sort make the order in which contributions reach an
-//     output element vary from run to run, so results differ from the plain
-//     version (and between runs) in the last bits of float32.
+//   * Sum order.  No float32 chain per output element is longer than
+//     kChain (32) slots.  A group's part of a chunk is kSortSlots / (kThreads
+//     / G) slots: 32 at rank 16 (G = 4), but 256 from rank 113 on (G = 32),
+//     where a hot row that fills the part would otherwise be one 256-slot
+//     chain.  Groups wider than 4 lanes therefore sum a run in sub-chains of
+//     kChain slots, each folded into a second register sum when it is full
+//     (a two-level sum: at most 8 folds a part).  A compensated (two-sum)
+//     fold would also have bounded the error, but costs 3 more adds a
+//     column and slot on every width; the sub-chains cost one add a column
+//     per kChain slots, and none at all on the rank-16 path, whose parts are
+//     never longer than kChain.  The runs of one row then join in group and
+//     warp order (a tree), and across the chunks of a block range in the
+//     carry.  What is left in float32 is the sum of the ranges' partial
+//     sums, which float atomics take in an order that varies from launch to
+//     launch.  scripts/torch_hot_rows_probe.py measures it on a tensor
+//     whose hottest row holds 41,700 of 50,000 non-zeros, 100 launches per
+//     case: with sub-chains alone, launches at rank 16 still passed 1e-5 of
+//     a column's max, where a small plan's one wave of CTAs gave 1-block
+//     ranges and so a hot row hundreds of partial sums; the 8-block floor
+//     on a range (no NELL-2-size plan is affected: theirs are 64-block
+//     ranges) brought rank 16's worst launch from 1.3e-5 to 5.9e-6, the
+//     sub-chains rank 256's from 1.0e-5 to 4.5e-6, and the carry rank
+//     256's from 6.9e-6 to 4.5e-6 (PERF.md, Findings).  The reductions and the atomic
+//     counting sort still make the order in which contributions reach an
+//     output element vary from run to run, so results differ from the
+//     plain version (and between runs) in the last bits of float32.
 //
 // Offsets into the stream, the factors and the output are computed in 64
 // bits.  The kernel allocates nothing and does not synchronise; the wrapper
@@ -96,6 +120,8 @@ constexpr int kPlaceUnroll = 4;     // rounds of the placing sort pass read at o
 constexpr int kQ = 4;               // columns per quad: one float4
 constexpr int kMaxQuads = 8;        // quads per lane of a 32-lane group; more make column slices
 constexpr int kMaxRows = 4096;      // tile rows per CTA (16 KB of counts); more make row parts
+constexpr int kChain = 32;          // slots a float32 sum of a run takes before it is folded
+constexpr int kMinBlocksPerCta = 8; // fewest plan blocks in a CTA's range (see "Sum order")
 // CTAs per SM the compiler keeps registers for (64 registers a thread)
 // where a lane holds one quad of a 3-mode tensor's row; 2 otherwise.
 constexpr int kMinCtasPerSm = 4;
@@ -146,12 +172,12 @@ struct alignas(N_IN == 2 ? 16 : 8) Sorted {
   int in[N_IN];
 };
 
-// Bytes of dynamic shared memory: the warps' first and last runs (2 x
-// kWarps x G x NQ float4s), the sorted chunk (kSortSlots Sorted), and the
-// row counts (rows ints).
+// Bytes of dynamic shared memory: the warps' first and last runs and the
+// carry ((2 x kWarps + 1) x G x NQ float4s), the sorted chunk (kSortSlots
+// Sorted), and the row counts (rows ints).
 template <int N_IN, int G, int NQ>
 size_t smem_bytes(int rows) {
-  return 2 * kWarps * G * NQ * sizeof(float4) + kSortSlots * sizeof(Sorted<N_IN>) +
+  return (2 * kWarps + 1) * G * NQ * sizeof(float4) + kSortSlots * sizeof(Sorted<N_IN>) +
          static_cast<size_t>(rows) * sizeof(int);
 }
 
@@ -200,23 +226,29 @@ __device__ __forceinline__ void fold_slot(float v, const float4 (&x)[N_IN][NQ], 
   }
 }
 
+// Add sums v to this lane's quad k of output row `row` (global).
+template <int NQ>
+__device__ __forceinline__ void add_quad(const Args& a, const Quads<NQ>& g, int k, const float4& v, int64_t row) {
+  if (g.nv[k] > 0) {
+    float* dst = a.out + row * a.ld + g.col[k];
+    if (a.vec) {
+      atomicAdd(reinterpret_cast<float4*>(dst), v);
+    } else {
+      const float x[kQ] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int c = 0; c < kQ; ++c) {
+        if (c < g.nv[k]) atomicAdd(dst + c, x[c]);
+      }
+    }
+  }
+}
+
 // Add this lane's sums for output row `row` (global) and clear them.
 template <int NQ>
 __device__ __forceinline__ void reduce_row(const Args& a, const Quads<NQ>& g, float4 (&acc)[NQ], int64_t row) {
 #pragma unroll
   for (int k = 0; k < NQ; ++k) {
-    if (g.nv[k] > 0) {
-      float* dst = a.out + row * a.ld + g.col[k];
-      if (a.vec) {
-        atomicAdd(reinterpret_cast<float4*>(dst), acc[k]);
-      } else {
-        const float x[kQ] = {acc[k].x, acc[k].y, acc[k].z, acc[k].w};
-#pragma unroll
-        for (int c = 0; c < kQ; ++c) {
-          if (c < g.nv[k]) atomicAdd(dst + c, x[c]);
-        }
-      }
-    }
+    add_quad<NQ>(a, g, k, acc[k], row);
     acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   }
 }
@@ -252,12 +284,21 @@ __device__ __forceinline__ void copy4(float4 (&dst)[NQ], const float4 (&src)[NQ]
 // contiguous part, walked slot by slot with the current row's sums in
 // registers.  A run's sums reach the output at each row change (rows are
 // relative to out_row0), but the part's first and last runs (rows it may
-// share with its neighbours) are returned.
+// share with its neighbours) are returned.  Where a part can hold more
+// than kChain slots, a run is summed in sub-chains of kChain slots, each
+// folded into `done` when full (the design notes' "Sum order").
 template <int N_IN, int G, int NQ>
 __device__ __forceinline__ Runs<NQ> group_rows(const Args& a, const Sorted<N_IN>* s_sorted, int total,
                                                int64_t out_row0, const Quads<NQ>& g) {
   constexpr int kGroups = kThreads / G;
+  constexpr bool kTwoLevel = kSortSlots / kGroups > kChain;
   const int grp = threadIdx.x / G;
+  float4 done[NQ];  // the run's full sub-chains (unused where !kTwoLevel)
+  int chain = 0;    // slots in the current sub-chain
+  if constexpr (kTwoLevel) {
+#pragma unroll
+    for (int k = 0; k < NQ; ++k) done[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
   Runs<NQ> r;
   r.f = -1;
   r.l = -1;
@@ -275,6 +316,12 @@ __device__ __forceinline__ Runs<NQ> group_rows(const Args& a, const Sorted<N_IN>
     float4 x[N_IN][NQ];
     fetch_slot<N_IN, NQ>(a, g, f.in, x);
     if (f.row != cur) {
+      if constexpr (kTwoLevel) {  // the run's sum: its full sub-chains and the current one
+        add4<NQ>(acc, done);
+#pragma unroll
+        for (int k = 0; k < NQ; ++k) done[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        chain = 0;
+      }
       if (cur >= 0) {
         if (r.f < 0) {
           r.f = cur;
@@ -290,7 +337,16 @@ __device__ __forceinline__ Runs<NQ> group_rows(const Args& a, const Sorted<N_IN>
       cur = f.row;
     }
     fold_slot<N_IN, NQ>(f.val, x, acc);
+    if constexpr (kTwoLevel) {
+      if (++chain == kChain) {
+        add4<NQ>(done, acc);
+#pragma unroll
+        for (int k = 0; k < NQ; ++k) acc[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        chain = 0;
+      }
+    }
   }
+  if constexpr (kTwoLevel) add4<NQ>(acc, done);
   if (r.f < 0) {  // one run, or none: it is the first
     r.f = cur;
     copy4<NQ>(r.af, acc);
@@ -386,15 +442,20 @@ __device__ __forceinline__ void keep_warp_runs(const Args& a, const Quads<NQ>& g
 
 // After every warp's runs are kept (a barrier between), by warp 0: join the
 // warps' runs in warp order (each group of warp 0 a share of the warps,
-// then a tree) and add the chunk's first and last runs to the output.  The
-// kernel does this for a chunk while the other warps count the next one,
-// whose next barrier comes before any warp keeps its runs again.
+// then a tree), then join the result onto the carry, the last run of the
+// CTA's chunks so far (its global row in s_run_row[2 * kWarps], -1: none;
+// its sums in s_carry): a run that ends in the chunk reaches the output,
+// and the chunk's last run becomes the carry.  So a row that fills many
+// chunks of a block range reaches the output once per range.  The kernel
+// does this for a chunk while the other warps count the next one, whose
+// next barrier comes before any warp keeps its runs again.
 template <int G, int NQ>
 __device__ __forceinline__ void add_runs(const Args& a, const Quads<NQ>& g, const float4* s_runs,
-                                         const int* s_run_row, int64_t out_row0) {
+                                         int* s_run_row, float4* s_carry, int64_t out_row0) {
   constexpr int kPer = kWarps / (32 / G);  // warps' runs per group of warp 0
   const int gi = threadIdx.x / G;
   const int gl = threadIdx.x % G;
+  const int carry = s_run_row[2 * kWarps];
   Runs<NQ> r;
   r.f = -1;
   r.l = -1;
@@ -412,10 +473,34 @@ __device__ __forceinline__ void add_runs(const Args& a, const Quads<NQ>& g, cons
     join<NQ>(a, g, r, o, out_row0);
   }
   join_warp<G, NQ>(a, g, r, out_row0);
-  if (gi == 0) {
-    if (r.f >= 0) reduce_row<NQ>(a, g, r.af, out_row0 + r.f);
-    if (r.l >= 0) reduce_row<NQ>(a, g, r.al, out_row0 + r.l);
+  int kept = carry;
+  if (gi == 0 && r.f >= 0) {  // group 0 holds the chunk's runs, each lane its quads
+    const int first = static_cast<int>(out_row0) + r.f;
+#pragma unroll
+    for (int k = 0; k < NQ; ++k) {
+      const float4 c = s_carry[k * G + gl];
+      if (carry == first) {  // the carried run goes on in this chunk
+        r.af[k].x += c.x;
+        r.af[k].y += c.y;
+        r.af[k].z += c.z;
+        r.af[k].w += c.w;
+      } else if (carry >= 0) {
+        add_quad<NQ>(a, g, k, c, carry);
+      }
+    }
+    if (r.l >= 0) {
+      reduce_row<NQ>(a, g, r.af, out_row0 + r.f);
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) s_carry[k * G + gl] = r.al[k];
+      kept = static_cast<int>(out_row0) + r.l;
+    } else {
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) s_carry[k * G + gl] = r.af[k];
+      kept = first;
+    }
   }
+  __syncwarp();  // every lane has read the carry's row
+  if (threadIdx.x == 0) s_run_row[2 * kWarps] = kept;
 }
 
 template <int N_IN, int G, int NQ>
@@ -423,9 +508,10 @@ __global__ void __launch_bounds__(kThreads, N_IN == 2 && NQ == 1 ? kMinCtasPerSm
     mttkrp_blocked_kernel(const Args a) {
   // Laid out as smem_bytes says.
   extern __shared__ float4 s_runs[];
-  Sorted<N_IN>* s_sorted = reinterpret_cast<Sorted<N_IN>*>(s_runs + 2 * kWarps * G * NQ);
+  float4* s_carry = s_runs + 2 * kWarps * G * NQ;
+  Sorted<N_IN>* s_sorted = reinterpret_cast<Sorted<N_IN>*>(s_carry + G * NQ);
   int* s_count = reinterpret_cast<int*>(s_sorted + kSortSlots);
-  __shared__ int s_run_row[2 * kWarps];
+  __shared__ int s_run_row[2 * kWarps + 1];  // the warps' runs' rows, and the carry's global row
   __shared__ int s_warp[kWarps];
 
   // CTA b takes (row part, column slice) b % slices of block range
@@ -449,6 +535,7 @@ __global__ void __launch_bounds__(kThreads, N_IN == 2 && NQ == 1 ? kMinCtasPerSm
   }
 
   for (int i = threadIdx.x; i < rows_here; i += kThreads) s_count[i] = 0;
+  if (threadIdx.x == 0) s_run_row[2 * kWarps] = -1;
   __syncthreads();
 
   const int64_t per = (a.nblocks + ranges - 1) / ranges;
@@ -494,7 +581,7 @@ __global__ void __launch_bounds__(kThreads, N_IN == 2 && NQ == 1 ? kMinCtasPerSm
         for (int m = 0; m < N_IN; ++m) f.in[m] = x.in[m];
         s_sorted[pos] = f;
       };
-      if (pending >= 0 && threadIdx.x < 32) add_runs<G, NQ>(a, g, s_runs, s_run_row, pending);
+      if (pending >= 0 && threadIdx.x < 32) add_runs<G, NQ>(a, g, s_runs, s_run_row, s_carry, pending);
       sort_pass<false, kSortUnroll, false>(a, s_count, s0, n, row0, rows_here, fetch, place);  // counts
       __syncthreads();  // row counts complete; the last chunk's runs are added
       const int total = exclusive_scan(s_count, rows_here, s_warp);
@@ -508,7 +595,15 @@ __global__ void __launch_bounds__(kThreads, N_IN == 2 && NQ == 1 ? kMinCtasPerSm
     }
     b = e;
   }
-  if (pending >= 0 && threadIdx.x < 32) add_runs<G, NQ>(a, g, s_runs, s_run_row, pending);
+  if (threadIdx.x < 32) {
+    if (pending >= 0) add_runs<G, NQ>(a, g, s_runs, s_run_row, s_carry, pending);
+    __syncwarp();  // the carry as the last chunk left it
+    const int carry = s_run_row[2 * kWarps];
+    if (carry >= 0 && threadIdx.x < G) {
+#pragma unroll
+      for (int k = 0; k < NQ; ++k) add_quad<NQ>(a, g, k, s_carry[k * G + gl], carry);
+    }
+  }
 }
 
 // Shape the grid and launch: row parts of at most kMaxRows rows, column
@@ -523,7 +618,7 @@ int launch(Args a, int device, cudaStream_t stream) {
   }
   a.slices = a.parts * a.col_slices;
   const int err = launch_ranges(mttkrp_blocked_kernel<N_IN, G, NQ>, a, smem_bytes<N_IN, G, NQ>(a.rows), device,
-                                stream);
+                                stream, kMinBlocksPerCta);
   return err == -1 ? static_cast<int>(cudaErrorInvalidConfiguration) : err;
 }
 

@@ -1,31 +1,41 @@
-"""Planned MTTKRP, TTMc and TT-core ops, and the planned CP-ALS workspace.
+"""Planned MTTKRP, TTMc and TT-core ops, the planned CP-ALS workspace, and
+the one-shot dispatchers with their plan cache.
 
-Counterpart of the MTTKRP, TTMc and TT-core parts of `repro.kernels.ops`:
+Counterpart of the single-device parts of `repro.kernels.ops`:
 `PlannedMTTKRP` / `PlannedTTMC` / `PlannedTTCore` hold one output mode's
 device-resident BlockPlan and run their kernel on it (for one tensor, mode
 and config all get the same plan: the kernel adapts to the layout);
-`PlannedCPALS` holds
-one per mode, built once and reused by every ALS iteration (the plan/remap
-cost is amortized over the decomposition).  Every `make_planned_*` takes
-`cfg=`, or `auto_tune=` and `spec=` to let the PMS (core/pms.py) pick each
-mode's configuration for its kernel.  No plan cache and no sharding yet.
+`PlannedCPALS` holds one per mode, built once and reused by every ALS
+iteration (the plan/remap cost is amortized over the decomposition).  Every
+`make_planned_*` takes `cfg=`, or `auto_tune=` and `spec=` to let the PMS
+(core/pms.py) pick each mode's configuration for its kernel.
+`mttkrp_auto` / `tucker_auto` / `tt_auto` compute one mode's MTTKRP, TTM
+chain or TT-core right-hand side in one call, their plans kept in a shared
+LRU cache keyed by the tensor's content (`plan_cache_stats`).  No sharding
+yet.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+import os
+import time
+from collections import OrderedDict
+from typing import Callable, Sequence
 
 import torch
 
-from ..core.coo import SparseTensor
+from ..core.coo import SparseTensor, to_device
 from ..core.cp_als import _update_mode, fit_value
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
+from ..core.mttkrp import mttkrp as mttkrp_stream
 from ..core.pms import predict_from_plan
 from ..core.pms import resolve_spec as pms_resolve_spec
 from ..core.pms import search as pms_search
-from ..core.remap import BlockPlan, plan_blocks
+from ..core.remap import BlockPlan, plan_blocks, plans_validated, validate_plan
 from ..device import resolve_device
+from ..obs import metrics as _metrics
 from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
+from .ref import ttcore_ref, ttmc_ref
 from .tt import tt_out_cols, tt_out_pair, ttcore_blocked
 from .ttm import kron_cols, ttmc_blocked
 from .workspace import PlannedWorkspace
@@ -39,6 +49,12 @@ __all__ = [
     "make_planned_ttcore",
     "PlannedCPALS",
     "make_planned_cp_als",
+    "mttkrp_auto",
+    "plan_cache_clear",
+    "plan_cache_config",
+    "plan_cache_stats",
+    "tt_auto",
+    "tucker_auto",
 ]
 
 
@@ -60,6 +76,11 @@ class PlannedMTTKRP:
         rp = rank_padded(self.rank)
         pads = [pad_factor(f, rows, rp) for f, rows in zip(in_factors, p.in_rows)]
         return mttkrp_blocked(p, pads)[:, : self.rank]
+
+    def output(self, factors: Sequence[torch.Tensor], true_rows: int) -> torch.Tensor:
+        """The mode's MTTKRP from ALL N factors (the output mode's is
+        ignored), cut to the mode's true rows."""
+        return self(*(factors[m] for m in self.plan.in_modes))[:true_rows]
 
 
 def _plan(st: SparseTensor, mode: int, cfg: MemoryControllerConfig,
@@ -155,6 +176,11 @@ class PlannedTTMC:
         pads = [pad_factor(f, rows, rank_padded(r))
                 for f, rows, r in zip(in_factors, p.in_rows, self.in_ranks)]
         return ttmc_blocked(p, pads, self.in_ranks)[:, : self.out_cols]
+
+    def output(self, factors: Sequence[torch.Tensor], true_rows: int) -> torch.Tensor:
+        """The unfolding Y_(mode) from ALL N factors (the output mode's is
+        ignored), cut to the mode's true rows."""
+        return self(*(factors[m] for m in self.plan.in_modes))[:true_rows]
 
 
 def make_planned_ttmc(
@@ -308,6 +334,11 @@ class PlannedCPALS(PlannedWorkspace):
         and padding): the predicted side of `obs.calibrate`."""
         return {m: predict_from_plan(op.plan, self.rank, op.cfg, spec) for m, op in self.ops.items()}
 
+    def mttkrp_fn(self, indices, values, factors, mode: int, out_rows: int) -> torch.Tensor:
+        """The `cp_als(mttkrp_fn=...)` seam: the stream arguments are
+        ignored, since each mode's remapped copy already lives in its plan."""
+        return self.ops[mode].output(factors, out_rows)
+
     def sweep(self, facs, idx, val, norm_x_sq, *, first: bool = False):
         """One ALS iteration in padded space.
 
@@ -352,3 +383,194 @@ def make_planned_cp_als(
                                   device=device)
            for m in range(st.nmodes)}
     return PlannedCPALS(ops=ops, shape=st.shape, rank=rank)
+
+
+# ---------------------------------------------------------------------------
+# The plan cache of the one-shot dispatchers (mttkrp_auto / tucker_auto /
+# tt_auto)
+# ---------------------------------------------------------------------------
+
+_PLAN_CACHE: OrderedDict[tuple, "PlannedMTTKRP | PlannedTTMC | PlannedTTCore"] = OrderedDict()
+# LRU bound: each entry pins a device-resident layout (1.7 GB at NELL-2
+# size), so an unbounded cache would let a caller that churns tensors grow
+# resident device memory without limit.  Set by REPRO_PLAN_CACHE_MAX when the
+# module is imported, and by plan_cache_config.
+_PLAN_CACHE_CAP = max(1, int(os.environ.get("REPRO_PLAN_CACHE_MAX", "32")))
+_PLAN_CACHE_KINDS = ("mttkrp", "ttmc", "tt")
+_PLAN_CACHE_STATS = {k: {"hits": 0, "misses": 0} for k in _PLAN_CACHE_KINDS}
+_PLAN_CACHE_EVICTIONS = {"count": 0}
+
+
+def plan_cache_config(maxsize: int | None = None) -> int:
+    """Get, and with an integer set, the plan cache's LRU bound (>= 1).
+    Setting it evicts least recently used entries down to the bound
+    (counted in `plan_cache_stats()["evictions"]`).  Returns the bound."""
+    global _PLAN_CACHE_CAP
+    if maxsize is not None:
+        if maxsize < 1:
+            raise ValueError(f"plan cache maxsize must be >= 1, got {maxsize}")
+        _PLAN_CACHE_CAP = int(maxsize)
+        _evict_to_cap()
+    return _PLAN_CACHE_CAP
+
+
+def _evict_to_cap() -> None:
+    while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
+        _PLAN_CACHE.popitem(last=False)
+        _PLAN_CACHE_EVICTIONS["count"] += 1
+        _metrics.counter("plan_cache.evictions").inc()
+
+
+def plan_cache_stats() -> dict:
+    """The shared plan cache's counters: {"hits", "misses", "evictions",
+    "size", "maxsize", "by_kind": {"mttkrp" | "ttmc" | "tt": {"hits",
+    "misses"}}}.  A hit is a dispatcher call that skipped the layout build;
+    the key carries the kernel kind, so kinds never alias.  Reset by
+    `plan_cache_clear()`."""
+    by_kind = {k: dict(v) for k, v in _PLAN_CACHE_STATS.items()}
+    return {
+        "hits": sum(v["hits"] for v in by_kind.values()),
+        "misses": sum(v["misses"] for v in by_kind.values()),
+        "evictions": _PLAN_CACHE_EVICTIONS["count"],
+        "size": len(_PLAN_CACHE),
+        "maxsize": _PLAN_CACHE_CAP,
+        "by_kind": by_kind,
+    }
+
+
+def plan_cache_clear() -> None:
+    """Drop every cached plan (their device memory with them) and zero the
+    counters."""
+    _PLAN_CACHE.clear()
+    for v in _PLAN_CACHE_STATS.values():
+        v["hits"] = 0
+        v["misses"] = 0
+    _PLAN_CACHE_EVICTIONS["count"] = 0
+
+
+def _planned_cached(kind: str, st: SparseTensor, mode: int, rank_key,
+                    cfg: MemoryControllerConfig | None, device: torch.device, build: Callable):
+    """LRU-cached op keyed by (kernel kind, the tensor's content
+    fingerprint, mode, rank key, controller config, device): a repeated
+    call stops paying for the Tensor Remapper.  The kind keeps MTTKRP, TTMc
+    and TT-core ops of one tensor, mode and rank apart.  With
+    REPRO_VALIDATE_PLANS set, a hit validates the cached plan again."""
+    key = (kind, st.fingerprint(), mode, rank_key, cfg or MemoryControllerConfig(), device)
+    stats = _PLAN_CACHE_STATS[kind]
+    t0 = time.perf_counter()
+    op = _PLAN_CACHE.get(key)
+    if op is not None:
+        stats["hits"] += 1
+        _PLAN_CACHE.move_to_end(key)
+        if plans_validated():
+            validate_plan(op.plan)
+        _metrics.counter("plan_cache.hits", kind=kind).inc()
+        _metrics.histogram("plan_cache.hit_seconds", kind=kind).observe(time.perf_counter() - t0)
+        return op
+    stats["misses"] += 1
+    op = build()
+    _PLAN_CACHE[key] = op
+    _evict_to_cap()
+    _metrics.counter("plan_cache.misses", kind=kind).inc()
+    _metrics.histogram("plan_cache.miss_build_seconds", kind=kind).observe(
+        time.perf_counter() - t0)
+    return op
+
+
+def mttkrp_auto(
+    st: SparseTensor,
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    *,
+    method: str = "pallas",
+    cfg: MemoryControllerConfig | None = None,
+    sorted_by_mode: bool | None = None,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """One mode's MTTKRP in one call: 'pallas' (the planned kernel, its
+    plan cached by the tensor's content; see `plan_cache_stats`),
+    'approach1' or 'approach2' (the compute patterns on the raw stream).
+
+    factors: ALL N factors, (I_m, R) each; moved to `device` (CUDA unless
+      given; raises when no GPU is present and no device was given).
+    sorted_by_mode: approach 1's promise that the stream is sorted by
+      `mode`; by default what the stream satisfies (`st.is_sorted_by`), so
+      it is never made for an unsorted stream.
+    Returns (I_mode, R) float32."""
+    device = resolve_device(device)
+    factors = [f.to(device) for f in factors]
+    rank = int(factors[0].shape[1])
+    if method == "pallas":
+        op = _planned_cached("mttkrp", st, mode, rank, cfg, device,
+                             lambda: make_planned_mttkrp(st, mode, rank, cfg=cfg, device=device))
+        return op.output(factors, st.shape[mode])
+    if sorted_by_mode is None:
+        sorted_by_mode = st.is_sorted_by(mode)
+    idx, val = to_device(st, device)
+    return mttkrp_stream(idx, val, factors, mode, st.shape[mode], method=method,
+                         sorted_by_mode=sorted_by_mode)
+
+
+def tucker_auto(
+    st: SparseTensor,
+    factors: Sequence[torch.Tensor],
+    mode: int,
+    *,
+    method: str = "pallas",
+    cfg: MemoryControllerConfig | None = None,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """One mode's sparse TTM chain in one call: every factor but `mode`'s
+    contracted into X.  'pallas' runs the planned TTMc kernel, its plan
+    cached under the input ranks; 'reference' the chunked `ttmc_ref` on the
+    raw stream.
+
+    factors: ALL N factors, (I_m, R_m) each, on `device` as `mttkrp_auto`.
+    Returns the unfolding Y_(mode), (I_mode, prod of the input ranks),
+    float32, columns row-major over ascending input mode."""
+    device = resolve_device(device)
+    factors = [f.to(device) for f in factors]
+    core_ranks = tuple(int(f.shape[1]) for f in factors)
+    if method == "pallas":
+        in_ranks = tuple(r for m, r in enumerate(core_ranks) if m != mode)
+        op = _planned_cached("ttmc", st, mode, in_ranks, cfg, device,
+                             lambda: make_planned_ttmc(st, mode, core_ranks, cfg=cfg, device=device))
+        return op.output(factors, st.shape[mode])
+    if method != "reference":
+        raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
+    idx, val = to_device(st, device)
+    return ttmc_ref(idx, val, factors, mode, st.shape[mode])
+
+
+def tt_auto(
+    st: SparseTensor,
+    cores: Sequence[torch.Tensor],
+    mode: int,
+    *,
+    method: str = "pallas",
+    cfg: MemoryControllerConfig | None = None,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """One mode's TT-ALS right-hand side B_mode in one call, from the left
+    and right interface chains of the other cores.  'pallas' runs the
+    planned TT-core kernel, its plan cached under the input cores' bond
+    pairs; 'reference' the chunked `ttcore_ref` on the raw stream.
+
+    cores: ALL N TT cores, (rl_k, I_k, rr_k) with boundary bonds 1, on
+      `device` as `mttkrp_auto`; the mode-th core's bonds set the width.
+    Returns (I_mode, rl_mode * rr_mode) float32, columns row-major over
+    (rl, rr)."""
+    device = resolve_device(device)
+    cores = [c.to(device) for c in cores]
+    pairs = tuple((int(c.shape[0]), int(c.shape[2])) for c in cores)
+    if method == "pallas":
+        in_pairs = tuple(p for m, p in enumerate(pairs) if m != mode)
+        tt_ranks = tuple(pairs[k][1] for k in range(len(cores) - 1))
+        op = _planned_cached("tt", st, mode, in_pairs, cfg, device,
+                             lambda: make_planned_ttcore(st, mode, tt_ranks, cfg=cfg, device=device))
+        mats = [c.permute(1, 0, 2).reshape(c.shape[1], -1) for c in cores]
+        return op.output(mats, st.shape[mode])
+    if method != "reference":
+        raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
+    idx, val = to_device(st, device)
+    return ttcore_ref(idx, val, cores, mode, st.shape[mode])

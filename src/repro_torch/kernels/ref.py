@@ -2,6 +2,8 @@
 Counterpart of `repro.kernels.ref`:
 
   * `mttkrp_ref`      — gather -> Hadamard -> index_add_ over the raw stream;
+  * `mttkrp_ref_dense` — densify-and-einsum cross-check (3 modes, float64,
+                        tiny shapes);
   * `mttkrp_plan_ref` — the same on the kernel's BlockPlan layout, padded
                         rows included;
   * `ttmc_ref`        — gather -> Kronecker chain -> index_add_ over the raw
@@ -13,19 +15,29 @@ Counterpart of `repro.kernels.ref`:
                         index_add_;
   * `ttcore_ref_dense` — the same by densifying (float64, tiny shapes);
   * `ttcore_plan_ref` — the same on the BlockPlan layout.
+
+`ttmc_ref` and `ttcore_ref` take the raw stream in steps of as many
+non-zeros as keep a step's widest rows to REF_ELEMS elements: at NELL-2
+size a 256-column right-hand side of all 76.9 M non-zeros at once would be
+79 GB.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
-from ..core.mttkrp import mttkrp_approach1
+from ..core.mttkrp import mttkrp_approach2
 from .tt import chain_left, chain_right
 from .ttm import kron_rows
 
-__all__ = ["mttkrp_ref", "mttkrp_plan_ref", "ttmc_ref", "ttmc_plan_ref", "ttcore_ref",
-           "ttcore_ref_dense", "ttcore_plan_ref"]
+__all__ = ["mttkrp_ref", "mttkrp_ref_dense", "mttkrp_plan_ref", "ttmc_ref", "ttmc_plan_ref",
+           "ttcore_ref", "ttcore_ref_dense", "ttcore_plan_ref"]
+
+#: Non-zero-by-column elements per step of the raw-stream references.
+REF_ELEMS = 1 << 26
 
 
 def mttkrp_ref(
@@ -35,7 +47,35 @@ def mttkrp_ref(
     mode: int,
     out_rows: int,
 ) -> torch.Tensor:
-    return mttkrp_approach1(indices, values, factors, mode, out_rows)
+    """MTTKRP over the raw stream in any order (a scatter-add)."""
+    return mttkrp_approach2(indices, values, factors, mode, out_rows)
+
+
+def mttkrp_ref_dense(
+    indices: np.ndarray,
+    values: np.ndarray,
+    factors: Sequence[np.ndarray],
+    mode: int,
+    out_rows: int,
+) -> np.ndarray:
+    """Densify-and-einsum cross-check for 3 modes (repeated coordinates add
+    up; float64 inside).  numpy in and out, float32 out."""
+    if len(factors) != 3:
+        raise ValueError(f"the dense cross-check takes 3 modes, got {len(factors)}")
+    shape = tuple(int(f.shape[0]) for f in factors)
+    dense = np.zeros(shape, np.float64)
+    np.add.at(dense, tuple(indices[:, m] for m in range(3)), values.astype(np.float64))
+    ins = [n for n in range(3) if n != mode]
+    letters = "ijk"
+    spec = f"ijk,{letters[ins[0]]}r,{letters[ins[1]]}r->{letters[mode]}r"
+    out = np.einsum(spec, dense, factors[ins[0]].astype(np.float64), factors[ins[1]].astype(np.float64))
+    return out[:out_rows].astype(np.float32)
+
+
+def _step(width: int) -> int:
+    """Non-zeros per step of a raw-stream reference whose widest per-non-zero
+    rows hold `width` elements."""
+    return max(1, REF_ELEMS // max(width, 1))
 
 
 def _global_rows(tile_ids: torch.Tensor, locs: torch.Tensor, tile: int, blk: int) -> torch.Tensor:
@@ -63,13 +103,19 @@ def ttmc_ref(
 ) -> torch.Tensor:
     """Sparse TTM chain: Y[i_n, :] += v * kron(rows of every factor != mode),
     columns row-major over ascending input mode.  `factors` holds all N
-    factor matrices; the mode-th is ignored.  (out_rows, prod of input ranks)."""
-    contrib = values[:, None].to(factors[0].dtype)
-    for n, f in enumerate(factors):
-        if n != mode:
-            contrib = kron_rows(contrib, f.index_select(0, indices[:, n]))
-    out = torch.zeros((out_rows, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
-    return out.index_add_(0, indices[:, mode], contrib)
+    factor matrices; the mode-th is ignored.  Taken in steps of non-zeros
+    (see the module note).  (out_rows, prod of input ranks)."""
+    ncols = math.prod(int(f.shape[1]) for n, f in enumerate(factors) if n != mode)
+    step = _step(ncols)
+    out = torch.zeros((out_rows, ncols), dtype=factors[0].dtype, device=values.device)
+    for z0 in range(0, values.shape[0], step):
+        idx = indices[z0: z0 + step]
+        contrib = values[z0: z0 + step, None].to(factors[0].dtype)
+        for n, f in enumerate(factors):
+            if n != mode:
+                contrib = kron_rows(contrib, f.index_select(0, idx[:, n]))
+        out.index_add_(0, idx[:, mode], contrib)
+    return out
 
 
 def ttmc_plan_ref(plan, factors_padded: Sequence[torch.Tensor], in_ranks: Sequence[int]) -> torch.Tensor:
@@ -110,12 +156,22 @@ def ttcore_ref(
     """Sparse TT-ALS right-hand side: B[i_m, :] += v * kron(l, r), l the left
     interface chain over cores < mode, r the right chain over cores > mode,
     columns row-major over (rl_m, rr_m).  `cores` holds all N TT cores,
-    (rl_k, I_k, rr_k); the mode-th is ignored.  (out_rows, rl_m * rr_m)."""
-    rows3 = [c.permute(1, 0, 2).index_select(0, indices[:, k]).to(values.dtype)
-             for k, c in enumerate(cores) if k != mode]
-    contrib = _tt_contrib(values, rows3, mode)
-    out = torch.zeros((out_rows, contrib.shape[1]), dtype=contrib.dtype, device=contrib.device)
-    return out.index_add_(0, indices[:, mode].to(torch.int64), contrib)
+    (rl_k, I_k, rr_k); the mode-th is ignored.  Taken in steps of non-zeros
+    (see the module note).  (out_rows, rl_m * rr_m)."""
+    rl, rr = int(cores[mode].shape[0]), int(cores[mode].shape[2])
+    # The widest per-non-zero temporary: an interface chain's (rl_k, rr_k)
+    # rows, or the output's rl * rr columns.
+    widest = max([rl * rr] + [int(c.shape[0]) * int(c.shape[2]) for c in cores])
+    step = _step(widest)
+    mats = [c.permute(1, 0, 2) for c in cores]
+    out = torch.zeros((out_rows, rl * rr), dtype=values.dtype, device=values.device)
+    for z0 in range(0, values.shape[0], step):
+        idx = indices[z0: z0 + step]
+        rows3 = [w.index_select(0, idx[:, k]).to(values.dtype)
+                 for k, w in enumerate(mats) if k != mode]
+        out.index_add_(0, idx[:, mode].to(torch.int64),
+                       _tt_contrib(values[z0: z0 + step], rows3, mode))
+    return out
 
 
 def ttcore_ref_dense(

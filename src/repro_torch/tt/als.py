@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..core.coo import SparseTensor, norm_sq, to_device
-from ..core.loop import check_workspace, finish_iter, given_factors
+from ..core.loop import check_planned_method, check_workspace, finish_iter, given_factors
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.pms import predict_tt
 from ..device import resolve_device
@@ -393,9 +393,8 @@ def tt_als(
     if method not in ("pallas", "reference"):
         raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
     device = resolve_device(device)
+    check_planned_method(method, planned)
     if planned is not None:
-        if method != "pallas":
-            raise ValueError(f"planned= is ignored by method={method!r}; pass method='pallas'")
         check_workspace(planned, PlannedTT, {"shape": st.shape, "tt_ranks": tr}, device)
     cores = _initial_cores(st, tr, init, init_cores, seed, device)
     pairs = _tt_bond_pairs(tr, st.nmodes)

@@ -29,7 +29,7 @@ from typing import Sequence
 import torch
 
 from ..core.coo import SparseTensor, norm_sq, to_device
-from ..core.loop import check_workspace, finish_iter, given_factors
+from ..core.loop import check_planned_method, check_workspace, finish_iter, given_factors
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.pms import predict_ttmc
 from ..device import resolve_device
@@ -227,9 +227,8 @@ def tucker_hooi(
     if method not in ("pallas", "reference"):
         raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
     device = resolve_device(device)
+    check_planned_method(method, planned)
     if planned is not None:
-        if method != "pallas":
-            raise ValueError(f"planned= is ignored by method={method!r}; pass method='pallas'")
         check_workspace(planned, PlannedTucker, {"shape": st.shape, "core_ranks": cr}, device)
     if init_factors is None:
         factors = init_tucker_factors(st.shape, cr, seed=seed, device=device)

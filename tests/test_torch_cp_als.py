@@ -1,6 +1,8 @@
 """The slice as a whole: `repro_torch.api.decompose(format="cp")` against
 `repro.api.decompose(format="cp", method="pallas")` from the same initial
-factors, on 3/4/5-mode tensors."""
+factors, on 3/4/5-mode tensors; and the compute-pattern methods
+(approach1/approach2 on the remap and copies layouts) and the `mttkrp_fn=`
+seam against the reference's `cp_als`."""
 import jax
 import numpy as np
 import pytest
@@ -8,10 +10,12 @@ import torch
 
 from repro.api import decompose as jax_decompose
 from repro.core.coo import random_factors
+from repro.core.cp_als import cp_als as jax_cp_als
 from repro_torch.api import decompose
 from repro_torch.convert import cpstate_to_numpy
 from repro_torch.core import coo as tcoo
-from repro_torch.core.cp_als import _normalize, _solve
+from repro_torch.core.cp_als import _normalize, _solve, cp_als
+from repro_torch.core.mttkrp import mttkrp_approach2
 from repro_torch.kernels.ops import make_planned_cp_als
 
 RANK = 4
@@ -40,6 +44,51 @@ def test_decompose_matches_reference(request, fixture):
     for got, want in zip(out["factors"], ref.factors):
         np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FACTOR_TOL)
     np.testing.assert_allclose(out["lam"], np.asarray(ref.lam), rtol=FACTOR_TOL, atol=FACTOR_TOL)
+
+
+@pytest.mark.parametrize("layout", ["remap", "copies"])
+@pytest.mark.parametrize("method", ["approach1", "approach2"])
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_compute_patterns_match_reference(request, fixture, method, layout):
+    """The reference's cp_als with the same method and layout, from its own
+    initial factors (random_factors(PRNGKey(0))): fits to 1e-5 over 3
+    iterations, factors to 1e-4."""
+    st = request.getfixturevalue(fixture)
+    ref = jax_cp_als(st, RANK, iters=ITERS, method=method, layout=layout, seed=0)
+    out = cpstate_to_numpy(decompose(to_port(st), RANK, method=method, layout=layout, iters=ITERS,
+                                     init_factors=reference_init(st), device="cpu"))
+    assert len(out["fit_history"]) == ITERS
+    np.testing.assert_allclose(out["fit_history"], ref.fit_history, rtol=0, atol=FIT_TOL)
+    for got, want in zip(out["factors"], ref.factors):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=FACTOR_TOL)
+
+
+def test_mttkrp_fn_seam(tiny_tensor):
+    """`mttkrp_fn=` runs the per-mode loop with the caller's MTTKRP: the
+    planned kernel through `PlannedCPALS.mttkrp_fn` gives the planned path's
+    fits and the reference's pallas fits; the approach-2 function gives the
+    approach-2 method's run exactly."""
+    st = to_port(tiny_tensor)
+    init = reference_init(tiny_tensor)
+    ws = make_planned_cp_als(st, RANK, device="cpu")
+    seam = cp_als(st, RANK, iters=ITERS, init_factors=init, mttkrp_fn=ws.mttkrp_fn, device="cpu")
+    planned = cp_als(st, RANK, iters=ITERS, init_factors=init, planned=ws, device="cpu")
+    ref = jax_decompose(tiny_tensor, RANK, format="cp", method="pallas", iters=ITERS, seed=0)
+    np.testing.assert_allclose(seam.fit_history, planned.fit_history, rtol=0, atol=FIT_TOL)
+    np.testing.assert_allclose(seam.fit_history, ref.fit_history, rtol=0, atol=FIT_TOL)
+    calls = []
+
+    def counted(*args):
+        calls.append(args[3])
+        return mttkrp_approach2(*args)
+
+    for layout in ("remap", "copies"):
+        calls.clear()
+        a = cp_als(st, RANK, iters=2, method="approach2", layout=layout, init_factors=init,
+                   mttkrp_fn=counted, device="cpu")
+        b = cp_als(st, RANK, iters=2, method="approach2", layout=layout, init_factors=init,
+                   device="cpu")
+        assert a.fit_history == b.fit_history and calls == [0, 1, 2] * 2
 
 
 def test_planned_workspace_reuse_and_padding(tiny_tensor):
@@ -88,6 +137,20 @@ def test_bad_arguments_raise(tiny_tensor):
         decompose(st, (4, 4, 4), device="cpu")
     with pytest.raises(ValueError, match="initial factor 1"):
         decompose(st, RANK, init_factors=[np.zeros((s, RANK)) for s in (64, 47, 80)], device="cpu")
+    ws = make_planned_cp_als(st, RANK, device="cpu")
+    for kw, match in ((dict(method="reference"), "unknown method"),
+                      (dict(method="approach3"), "unknown method"),
+                      (dict(method="approach1", layout="tiles"), "unknown layout"),
+                      (dict(method="approach1", planned=ws), "would be silently ignored"),
+                      (dict(method="approach2", planned=ws), "would be silently ignored")):
+        with pytest.raises(ValueError, match=match):
+            decompose(st, RANK, iters=1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown method"):
+        cp_als(st, RANK, iters=1, method="pallas_sharded", device="cpu")
+    with pytest.raises(ValueError, match="silently ignored"):
+        cp_als(st, RANK, iters=1, planned=ws, mttkrp_fn=ws.mttkrp_fn, device="cpu")
+    with pytest.raises(ValueError, match="format='cp' only"):
+        decompose(st, 2, format="tucker", layout="copies", device="cpu")
 
 
 def test_normalize_first_iteration_rule():

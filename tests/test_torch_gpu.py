@@ -6,7 +6,10 @@ which splits the MTTKRP and TTMc row counts into row parts; and on a
 tensor whose hot rows fill whole block ranges; at the geometries the PMS
 may pick: blocks of 128 and 1,024 slots, tiles (1,024, 128, 512)), and the
 CP-ALS, Tucker HOOI and TT-ALS paths on CUDA, also with auto_tune=True,
-against the CPU path.  Marked `gpu`; they
+against the CPU path; every launch of the MTTKRP kernel on the hot rows
+within the bound, 20 times over; the compute patterns (approach 1 and 2)
+on the card against float64; and the one-shot dispatchers' launches and
+plan cache.  Marked `gpu`; they
 skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
@@ -23,7 +26,11 @@ from repro_torch.api import decompose
 from repro_torch.core.coo import frostt_like, synthetic_tensor
 from repro_torch.core.memctrl import CacheEngineConfig, DMAEngineConfig, MemoryControllerConfig
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded
+import repro_torch.kernels.ops as ops_module
+from repro_torch.core.mttkrp import mttkrp
+from repro_torch.core.remap import remap_stable
 from repro_torch.kernels.ops import make_planned_cp_als
+from repro_torch.kernels.ref import ttcore_ref, ttmc_ref
 from repro_torch.kernels.tt import ttcore_blocked, ttcore_blocked_plain
 from repro_torch.kernels.ttm import ttmc_blocked, ttmc_blocked_plain
 from repro_torch.tt import init_tt_cores, make_planned_tt
@@ -129,6 +136,80 @@ def test_kernel_on_hot_rows(cuda, geometry, rank):
     """A hot row's float32 sums stay within TOL: its groups' shares reach
     the output once per sorted chunk, not once per group."""
     check_mttkrp(cuda, hot_row_tensor(), rank, GEOMETRIES[geometry])
+
+
+@pytest.mark.parametrize("rank", [16, 256])
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_kernel_on_hot_rows_every_launch(cuda, geometry, rank):
+    """The hot rows' sums take an order that varies from launch to launch:
+    each of 20 launches on every mode stays within TOL of float64."""
+    st = hot_row_tensor()
+    ws = make_planned_cp_als(st, rank, cfg=GEOMETRIES[geometry], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for m in range(st.nmodes):
+        plan = ws.plan_for(m)
+        facs = [torch.randn((r, rank_padded(rank)), generator=gen, device=cuda) for r in plan.in_rows]
+        want = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
+                                    [f.double() for f in facs])
+        for _ in range(20):
+            assert_cols_within(mttkrp_blocked(plan, facs), want, rank_padded(rank))
+
+
+@pytest.mark.parametrize("method", ["approach1", "approach2"])
+@pytest.mark.parametrize("preset", ["tiny", "4d_small", "5d_small"])
+def test_compute_patterns_on_the_card(cuda, preset, method):
+    """Approach 1 (segmented sums over the remapped stream) and approach 2
+    (float32 atomics) against float64 on the same inputs, every mode."""
+    st = frostt_like(preset)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    idx, val = torch.from_numpy(st.indices).to(cuda), torch.from_numpy(st.values).to(cuda)
+    facs = [torch.randn((s, 16), generator=gen, device=cuda) for s in st.shape]
+    for m in range(st.nmodes):
+        s_idx, s_val, _ = remap_stable(idx, val, m)
+        got = mttkrp(s_idx, s_val, facs, m, st.shape[m], method=method)
+        want = mttkrp(s_idx, s_val.double(), [f.double() for f in facs], m, st.shape[m],
+                      method="approach2")
+        assert got.device.type == cuda.type and got.dtype == torch.float32
+        assert_cols_within(got, want, 16)
+
+
+def test_dispatchers_launch_the_kernels(cuda, monkeypatch):
+    """mttkrp_auto, tucker_auto and tt_auto launch their kernel once a call;
+    a second mttkrp_auto call hits the plan cache and builds nothing; each
+    output within TOL of its chunked reference in float64."""
+    st = frostt_like("4d_small")
+    ops_module.plan_cache_clear()
+    built = []
+    real = ops_module.make_planned_mttkrp
+    monkeypatch.setattr(ops_module, "make_planned_mttkrp",
+                        lambda *a, **k: built.append(a) or real(*a, **k))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    idx, val = torch.from_numpy(st.indices).to(cuda), torch.from_numpy(st.values).to(cuda)
+    facs = [torch.randn((s, 16), generator=gen, device=cuda) for s in st.shape]
+    before = mttkrp_blocked.launches
+    first = ops_module.mttkrp_auto(st, facs, 0, device=cuda)
+    second = ops_module.mttkrp_auto(st, facs, 0, device=cuda)
+    assert mttkrp_blocked.launches == before + 2 and len(built) == 1
+    stats = ops_module.plan_cache_stats()
+    assert stats["by_kind"]["mttkrp"] == {"hits": 1, "misses": 1}
+    want = mttkrp(idx, val.double(), [f.double() for f in facs], 0, st.shape[0], method="approach2")
+    assert_cols_within(first, want, 16)
+    assert_cols_within(second, want, 16)
+
+    tfacs = [torch.randn((s, r), generator=gen, device=cuda) for s, r in zip(st.shape, (5, 4, 6, 3))]
+    before = ttmc_blocked.launches
+    got = ops_module.tucker_auto(st, tfacs, 0, device=cuda)
+    assert ttmc_blocked.launches == before + 1
+    assert_cols_within(got, ttmc_ref(idx, val.double(), [f.double() for f in tfacs], 0, st.shape[0]),
+                       got.shape[1])
+
+    cores = init_tt_cores(st.shape, (4, 3, 5), seed=3, device=cuda)
+    before = ttcore_blocked.launches
+    got = ops_module.tt_auto(st, cores, 0, device=cuda)
+    assert ttcore_blocked.launches == before + 1
+    assert_cols_within(got, ttcore_ref(idx, val.double(), [c.double() for c in cores], 0, st.shape[0]),
+                       got.shape[1])
+    ops_module.plan_cache_clear()
 
 
 def test_cuda_fits_match_cpu(cuda):

@@ -15,7 +15,7 @@ from repro_torch.api import decompose
 from repro_torch.core import coo as tcoo
 from repro_torch.core.remap import plan_blocks
 from repro_torch.kernels.mttkrp import mttkrp_blocked
-from repro_torch.kernels.ops import make_planned_cp_als
+from repro_torch.kernels.ops import make_planned_cp_als, mttkrp_auto, tt_auto, tucker_auto
 from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import ttmc_blocked
 from repro_torch.tt import make_planned_tt, tt_als, tt_svd
@@ -61,8 +61,20 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_gpu_and_device(no_cuda):
     st = tcoo.frostt_like("tiny")
+    facs = [torch.ones((s, 4)) for s in st.shape]
+    cores = [torch.ones((a, s, b)) for s, (a, b) in zip(st.shape, ((1, 2), (2, 2), (2, 1)))]
     for call in (lambda: decompose(st, 4),
                  lambda: decompose(st, 4, auto_tune=True),
+                 lambda: decompose(st, 4, method="approach1"),
+                 lambda: decompose(st, 4, method="approach2", layout="copies"),
+                 lambda: decompose(st, 4, format="tucker", method="reference"),
+                 lambda: decompose(st, 4, format="tt", method="reference"),
+                 lambda: mttkrp_auto(st, facs, 0),
+                 lambda: mttkrp_auto(st, facs, 0, method="approach1"),
+                 lambda: tucker_auto(st, facs, 0),
+                 lambda: tucker_auto(st, facs, 0, method="reference"),
+                 lambda: tt_auto(st, cores, 0),
+                 lambda: tt_auto(st, cores, 0, method="reference"),
                  lambda: make_planned_cp_als(st, 4),
                  lambda: plan_blocks(st, 0),
                  lambda: decompose(st, 4, format="tucker"),
@@ -77,6 +89,10 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
     assert len(decompose(st, 4, iters=1, device="cpu").fit_history) == 1
     assert len(decompose(st, 4, format="tucker", iters=1, device="cpu").fit_history) == 1
     assert len(decompose(st, 4, format="tt", iters=1, device="cpu").fit_history) == 1
+    assert len(decompose(st, 4, method="approach1", iters=1, device="cpu").fit_history) == 1
+    assert mttkrp_auto(st, facs, 0, device="cpu").device.type == "cpu"
+    assert tucker_auto(st, facs, 0, device="cpu").device.type == "cpu"
+    assert tt_auto(st, cores, 0, device="cpu").device.type == "cpu"
     assert all(c.device.type == "cpu" for c in tt_svd(st, (4, 4), device="cpu"))
 
 

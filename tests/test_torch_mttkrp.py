@@ -2,7 +2,9 @@
 (`repro_torch.kernels.mttkrp`): its plain version against the reference's
 Pallas kernel (interpret mode, as the reference's own tests run it) and the
 reference's plan oracle, on the same plans and padded factors, carried over
-by `repro_torch.convert`.  On the CPU the wrapper takes the plain version."""
+by `repro_torch.convert`.  On the CPU the wrapper takes the plain version.
+Also the paper's two compute patterns (`repro_torch.core.mttkrp`) and the
+dense cross-check against the reference's."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -11,14 +13,19 @@ import pytest
 import torch
 
 from repro.core.coo import frostt_like as jax_frostt_like
+from repro.core.mttkrp import mttkrp as jax_mttkrp
 from repro.core.mttkrp import mttkrp_approach1 as jax_mttkrp_approach1
 from repro.core.remap import plan_blocks as jax_plan_blocks
 from repro.kernels.mttkrp_pallas import mttkrp_pallas_call
 from repro.kernels.ref import mttkrp_plan_ref as jax_mttkrp_plan_ref
+from repro.kernels.ref import mttkrp_ref_dense as jax_mttkrp_ref_dense
 from repro.kernels.workspace import _visited_row_mask
 from repro_torch.convert import factors_from_numpy, plan_from_numpy
+from repro_torch.core import coo as tcoo
 from repro_torch.core.coo import SparseTensor
-from repro_torch.core.mttkrp import mttkrp_approach1
+import repro_torch.core.mttkrp as tmttkrp
+from repro_torch.core.mttkrp import mttkrp, mttkrp_approach1, mttkrp_approach2
+from repro_torch.core.remap import remap_stable
 from repro_torch.core.remap import plan_blocks
 from repro_torch.kernels.mttkrp import (
     mttkrp_blocked,
@@ -27,7 +34,7 @@ from repro_torch.kernels.mttkrp import (
     rank_padded,
 )
 from repro_torch.kernels.ops import make_planned_mttkrp
-from repro_torch.kernels.ref import mttkrp_plan_ref, mttkrp_ref
+from repro_torch.kernels.ref import mttkrp_plan_ref, mttkrp_ref, mttkrp_ref_dense
 from test_torch_remap import assert_plans_equal
 
 RANK = 4
@@ -158,8 +165,101 @@ def test_approach1_matches_reference(request, fixture):
             jnp.asarray(st.indices), jnp.asarray(st.values), [jnp.asarray(f) for f in facs],
             mode, st.shape[mode], sorted_by_mode=False))
         got = mttkrp_approach1(torch.from_numpy(st.indices), torch.from_numpy(st.values),
-                               factors_from_numpy(facs, "cpu"), mode, st.shape[mode])
+                               factors_from_numpy(facs, "cpu"), mode, st.shape[mode],
+                               sorted_by_mode=False)
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def pattern_inputs(st, mode, seed=11):
+    """The stream sorted by `mode` (numpy and torch) and numpy factors."""
+    s = st.sorted_by(mode)
+    rng = np.random.default_rng(seed + mode)
+    facs = [rng.standard_normal((n, RANK)).astype(np.float32) for n in st.shape]
+    return s, facs
+
+
+@pytest.mark.parametrize("method", ["approach1", "approach2"])
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_compute_patterns_match_reference(request, fixture, method):
+    """Every mode on the stream sorted by it: the port's approach and its
+    `mttkrp` dispatcher against the reference's, to 1e-5."""
+    st = request.getfixturevalue(fixture)
+    for mode in range(st.nmodes):
+        s, facs = pattern_inputs(st, mode)
+        want = np.asarray(jax_mttkrp(jnp.asarray(s.indices), jnp.asarray(s.values),
+                                         [jnp.asarray(f) for f in facs], mode, st.shape[mode],
+                                         method=method))
+        args = (torch.from_numpy(s.indices), torch.from_numpy(s.values),
+                factors_from_numpy(facs, "cpu"), mode, st.shape[mode])
+        direct = (mttkrp_approach1 if method == "approach1" else mttkrp_approach2)(*args)
+        np.testing.assert_allclose(direct.numpy(), want, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(mttkrp(*args, method=method).numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_approach1_on_an_unsorted_stream(tiny_tensor):
+    """sorted_by_mode=False takes the general path (the reference's unsorted
+    segment_sum); a sorted-only reduction refuses an unsorted stream rather
+    than summing the wrong slots."""
+    st = tiny_tensor
+    assert not st.is_sorted_by(0)
+    rng = np.random.default_rng(3)
+    facs = [rng.standard_normal((n, RANK)).astype(np.float32) for n in st.shape]
+    idx, val = torch.from_numpy(st.indices), torch.from_numpy(st.values)
+    want = np.asarray(jax_mttkrp_approach1(jnp.asarray(st.indices), jnp.asarray(st.values),
+                                           [jnp.asarray(f) for f in facs], 0, st.shape[0],
+                                           sorted_by_mode=False))
+    got = mttkrp(idx, val, factors_from_numpy(facs, "cpu"), 0, st.shape[0], sorted_by_mode=False)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="not sorted"):
+        mttkrp(idx, val, factors_from_numpy(facs, "cpu"), 0, st.shape[0])
+    s_idx, s_val, _ = remap_stable(idx, val, 0)
+    np.testing.assert_allclose(mttkrp(s_idx, s_val, factors_from_numpy(facs, "cpu"), 0,
+                                      st.shape[0]).numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("segment", [2, 3, 16])
+def test_approach1_sums_hot_rows_in_levels(monkeypatch, segment):
+    """Runs longer than a segment (a zipf-3 tensor's hot rows) are summed
+    over several levels of segments and give the scatter-add's sums; empty
+    output rows stay 0."""
+    monkeypatch.setattr(tmttkrp, "SEGMENT", segment)
+    st = tcoo.synthetic_tensor((300, 40, 50), 3_000, seed=1, skew=3.0).sorted_by(0)
+    rng = np.random.default_rng(segment)
+    facs = [torch.from_numpy(rng.standard_normal((n, RANK)).astype(np.float32)) for n in st.shape]
+    idx, val = torch.from_numpy(st.indices), torch.from_numpy(st.values)
+    got = mttkrp_approach1(idx, val, facs, 0, 320)
+    want = mttkrp_approach2(idx, val, facs, 0, 320)
+    assert got.shape == (320, RANK) and not got[300:].any()
+    assert int(np.bincount(st.indices[:, 0]).max()) > segment ** 2
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_mttkrp_ref_dense_matches_reference(tiny_tensor, mode):
+    """The dense cross-check against the reference's, and the raw-stream
+    reference against both."""
+    st = tiny_tensor
+    rng = np.random.default_rng(20 + mode)
+    facs = [rng.standard_normal((n, RANK)).astype(np.float32) for n in st.shape]
+    got = mttkrp_ref_dense(st.indices, st.values, facs, mode, st.shape[mode])
+    want = jax_mttkrp_ref_dense(st.indices, st.values, facs, mode, st.shape[mode])
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+    stream = mttkrp_ref(torch.from_numpy(st.indices), torch.from_numpy(st.values),
+                        factors_from_numpy(facs, "cpu"), mode, st.shape[mode])
+    np.testing.assert_allclose(stream.numpy(), got, rtol=RTOL, atol=ATOL)
+
+
+def test_compute_pattern_contracts(tiny_tensor):
+    st = tiny_tensor
+    idx, val = torch.from_numpy(st.indices), torch.from_numpy(st.values)
+    facs = [torch.ones((n, RANK)) for n in st.shape]
+    with pytest.raises(ValueError, match="unknown method"):
+        mttkrp(idx, val, facs, 0, st.shape[0], method="pallas")
+    with pytest.raises(ValueError, match="two modes|3 modes"):
+        mttkrp_ref_dense(st.indices[:, :2], st.values, [f.numpy() for f in facs[:2]], 0, 64)
+    empty = mttkrp_approach1(idx[:0], val[:0], facs, 1, st.shape[1])
+    assert empty.shape == (st.shape[1], RANK) and not empty.any()
 
 
 # CP rank 256 at the default plan geometry (tile_i = 256): the CUDA kernel

@@ -255,11 +255,12 @@ def test_tt_terms_closed_form(tensor4d):
 # Shared memory per CTA from the kernels' layouts (csrc/*.cu), written out:
 # (dynamic, static) bytes, row parts, column slices.
 MTTKRP_SMEM = [
-    # rank, n_in, tile_i: runs 2*8 warps*G*NQ*16 B, 2,048 sorted slots, row counts; static 96
-    ((16, 2, 256), (2 * 8 * 4 * 16 + 2048 * 16 + 256 * 4, 96), 1, 1),
-    ((4, 3, 128), (2 * 8 * 4 * 16 + 2048 * 24 + 128 * 4, 96), 1, 1),
-    ((256, 2, 8192), (2 * 8 * 32 * 2 * 16 + 2048 * 16 + 4096 * 4, 96), 2, 1),
-    ((1100, 4, 1024), (2 * 8 * 32 * 8 * 16 + 2048 * 24 + 1024 * 4, 96), 1, 2),
+    # rank, n_in, tile_i: runs of 8 warps and the carry (2*8+1)*G*NQ*16 B, 2,048 sorted
+    # slots, row counts; static 100
+    ((16, 2, 256), ((2 * 8 + 1) * 4 * 16 + 2048 * 16 + 256 * 4, 100), 1, 1),
+    ((4, 3, 128), ((2 * 8 + 1) * 4 * 16 + 2048 * 24 + 128 * 4, 100), 1, 1),
+    ((256, 2, 8192), ((2 * 8 + 1) * 32 * 2 * 16 + 2048 * 16 + 4096 * 4, 100), 2, 1),
+    ((1100, 4, 1024), ((2 * 8 + 1) * 32 * 8 * 16 + 2048 * 24 + 1024 * 4, 100), 1, 2),
 ]
 TTMC_SMEM = [
     # in_ranks, tile_i: edges 8*2*NQ*32*16 B, row counts; static 16 KB permutation + 96
@@ -403,7 +404,7 @@ def test_search_counts_configs_and_prunes_by_shared_memory(tiny_tensor):
     with pytest.raises(ValueError, match="fits shared memory"):
         make_planned_mttkrp(st, 0, 16, auto_tune=True, spec=tight, device="cpu")
     # tile_i 128 fits a budget that 1,024 rows of counts do not
-    mid = GPUSpec(smem_per_block=2 * 8 * 4 * 16 + 2048 * 16 + 512 * 4 + 96)
+    mid = GPUSpec(smem_per_block=(2 * 8 + 1) * 4 * 16 + 2048 * 16 + 512 * 4 + 100)
     kept = pms.search(st, 0, 16, spec=mid, top_k=len(GRID))
     assert {e.cfg.cache.tile_i for e in kept} == {128, 256, 512}
     metrics.reset()

@@ -1,4 +1,6 @@
-"""Port parity for the host substrate: `repro_torch.core.coo` generators and
+"""Port parity for the host substrate: `repro_torch.core.coo` generators, the
+Tensor Remapper's stream remaps (`pointer_table`, `remap_stable`,
+`radix_digits`, `remap_radix`, `remap_pointer_machine`) and
 `repro_torch.core.remap.plan_blocks` against the JAX package, bit for bit."""
 import dataclasses
 
@@ -7,7 +9,10 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as hst
 
+import jax.numpy as jnp
+
 from repro.core import coo as jcoo
+from repro.core import remap as jremap
 from repro.core.remap import plan_blocks as jax_plan_blocks
 from repro_torch.convert import plan_from_numpy
 from repro_torch.core import coo as tcoo
@@ -16,6 +21,11 @@ from repro_torch.core.remap import (
     group_key,
     plan_blocks,
     plan_blocks_reference,
+    pointer_table,
+    radix_digits,
+    remap_pointer_machine,
+    remap_radix,
+    remap_stable,
     validate_plan,
 )
 
@@ -147,3 +157,117 @@ def test_group_key_overflow_and_order():
     assert group_key(cols, [2, 4]).tolist() == [6, 3, 4]
     with pytest.raises(OverflowError):
         group_key([torch.tensor([0])] * 3, [2**22] * 3)
+
+
+# ---------------------------------------------------------------------------
+# The stream remaps of the compute patterns
+# ---------------------------------------------------------------------------
+
+def torch_stream(st):
+    return torch.from_numpy(st.indices), torch.from_numpy(st.values)
+
+
+def assert_same_stream(got, want):
+    """(indices, values, order) equal bit for bit, the order as int64."""
+    for a, b in zip(got, want):
+        a, b = np.asarray(a.numpy() if isinstance(a, torch.Tensor) else a), np.asarray(b)
+        if a.dtype.kind == "i":
+            a, b = a.astype(np.int64), b.astype(np.int64)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_remap_stable_and_pointer_table_match_reference(request, fixture):
+    """Every mode: `remap_stable` gives the reference's stream and order (ties
+    keep their stream order), `remap_pointer_machine` the same stream, and
+    `pointer_table` the reference's offsets and counts."""
+    st = request.getfixturevalue(fixture)
+    idx, val = torch_stream(st)
+    for mode in range(st.nmodes):
+        want = jremap.remap_stable(jnp.asarray(st.indices), jnp.asarray(st.values), mode)
+        got = remap_stable(idx, val, mode)
+        assert_same_stream(got, want)
+        machine = remap_pointer_machine(st.indices, st.values, mode, st.shape[mode])
+        assert_same_stream(machine, want[:2])
+        assert_same_stream(machine, jremap.remap_pointer_machine(st.indices, st.values, mode,
+                                                                 st.shape[mode]))
+        offsets, counts = pointer_table(idx[:, mode], st.shape[mode])
+        w_off, w_cnt = jremap.pointer_table(jnp.asarray(st.indices[:, mode]), st.shape[mode])
+        assert offsets.dtype == counts.dtype == torch.int32
+        np.testing.assert_array_equal(offsets.numpy(), np.asarray(w_off))
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(w_cnt))
+
+
+@pytest.mark.parametrize("budget", [2, 4, 7, 64, 1000])
+@pytest.mark.parametrize("nbins", [1, 4, 63, 64, 65, 4096, 4097, 10**6])
+def test_radix_digits_matches_reference(budget, nbins):
+    """Exact powers of the budget included (the float formula's off-by-one)."""
+    assert radix_digits(nbins, budget) == jremap.radix_digits(nbins, budget)
+    assert budget ** radix_digits(nbins, budget) >= nbins
+    assert radix_digits(nbins, budget) == 1 or budget ** (radix_digits(nbins, budget) - 1) < nbins
+
+
+def test_radix_digits_rejects_one_bin():
+    with pytest.raises(ValueError, match="two bins"):
+        radix_digits(8, 1)
+
+
+@pytest.mark.parametrize("budget", [2, 4, 7, 16, 4096])
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_remap_radix_equals_stable(request, fixture, budget):
+    """Passes of at most `budget` bins give `remap_stable`'s stream and
+    order, and the reference's `remap_radix`."""
+    st = request.getfixturevalue(fixture)
+    idx, val = torch_stream(st)
+    for mode in range(st.nmodes):
+        want = remap_stable(idx, val, mode)
+        got = remap_radix(idx, val, mode, st.shape[mode], budget)
+        assert_same_stream(got, want)
+        assert_same_stream(got, jremap.remap_radix(jnp.asarray(st.indices), jnp.asarray(st.values),
+                                                   mode, st.shape[mode], budget))
+
+
+@pytest.mark.parametrize("budget,power", [(2, 6), (4, 3), (8, 2), (16, 2)])
+def test_remap_radix_at_exact_powers_of_the_budget(budget, power):
+    """nbins = budget ** power: exactly `power` passes, and the coordinate
+    nbins - 1 (every digit at its largest) sorts last."""
+    nbins = budget ** power
+    rng = np.random.default_rng(nbins)
+    coords = rng.integers(0, nbins, 3_000).astype(np.int32)
+    coords[:3] = nbins - 1
+    coords[3:6] = 0
+    idx = torch.from_numpy(np.stack([coords, coords[::-1].copy(), coords % 5], axis=1))
+    val = torch.from_numpy(rng.standard_normal(3_000).astype(np.float32))
+    assert radix_digits(nbins, budget) == power
+    got = remap_radix(idx, val, 0, nbins, budget)
+    assert_same_stream(got, remap_stable(idx, val, 0))
+    assert int(got[0][-1, 0]) == nbins - 1
+
+
+@settings(max_examples=20, deadline=None)
+@given(nnz=hst.integers(1, 400), nbins=hst.integers(1, 300), budget=hst.integers(2, 40),
+       seed=hst.integers(0, 2**31 - 1))
+def test_remap_radix_property(nnz, nbins, budget, seed):
+    """Any stream with many ties: radix passes and the stable sort agree,
+    and both give the reference's order."""
+    rng = np.random.default_rng(seed)
+    ind = rng.integers(0, nbins, (nnz, 3)).astype(np.int32)
+    vals = rng.standard_normal(nnz).astype(np.float32)
+    idx, val = torch.from_numpy(ind), torch.from_numpy(vals)
+    stable = remap_stable(idx, val, 1)
+    assert_same_stream(remap_radix(idx, val, 1, nbins, budget), stable)
+    assert_same_stream(stable, jremap.remap_stable(jnp.asarray(ind), jnp.asarray(vals), 1))
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_sorted_by_and_nbytes_match_reference(request, fixture):
+    st = request.getfixturevalue(fixture)
+    port = to_port(st)
+    assert port.nbytes() == st.nbytes() and port.nbytes(8, 8) == st.nbytes(8, 8)
+    for mode in range(st.nmodes):
+        got, want = port.sorted_by(mode), st.sorted_by(mode)
+        np.testing.assert_array_equal(got.indices, want.indices)
+        np.testing.assert_array_equal(got.values, want.values)
+        assert got.is_sorted_by(mode) and want.is_sorted_by(mode)
+        assert port.is_sorted_by(mode) == st.is_sorted_by(mode)

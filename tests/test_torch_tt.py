@@ -23,6 +23,7 @@ from repro_torch.convert import cores_from_numpy, factors_from_numpy, plan_from_
 from repro_torch.core.coo import SparseTensor
 from repro_torch.kernels.mttkrp import rank_padded
 from repro_torch.kernels.ops import _tt_bond_pairs, make_planned_ttcore
+import repro_torch.kernels.ref as ref_module
 from repro_torch.kernels.ref import ttcore_plan_ref, ttcore_ref, ttcore_ref_dense
 from repro_torch.kernels.tt import tt_out_cols, tt_out_pair, ttcore_blocked, ttcore_blocked_plain
 
@@ -132,6 +133,25 @@ def test_planned_ttcore_matches_raw_stream_refs(request, fixture, ranks):
         dense = jax_ttcore_ref_dense(st.indices, st.values, np_cores, mode, st.shape[mode])
         assert_cols_close(ttcore_ref_dense(idx, val, cores, mode, st.shape[mode]), dense)
         assert_cols_close(ttcore_ref(idx, val, cores, mode, st.shape[mode]), dense)
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_ttcore_ref_chunks_equal_one_step(request, fixture, monkeypatch):
+    """`ttcore_ref` in steps of fewer non-zeros than the stream holds equals
+    the same sum in one step: the reference's unchunked form, which
+    `test_planned_ttcore_matches_raw_stream_refs` holds to the reference's
+    `ttcore_ref`."""
+    st = request.getfixturevalue(fixture)
+    tt_ranks = TT_RANKS[fixture]["mixed"]
+    np_cores = random_cores(st.shape, tt_ranks, seed=8)
+    cores = cores_from_numpy(np_cores, "cpu")
+    idx, val = torch.from_numpy(st.indices), torch.from_numpy(st.values)
+    for mode in range(st.nmodes):
+        monkeypatch.setattr(ref_module, "REF_ELEMS", 1 << 40)  # one step
+        whole = ttcore_ref(idx, val, cores, mode, st.shape[mode])
+        monkeypatch.setattr(ref_module, "REF_ELEMS", 97 * 12)  # steps of fewer than nnz
+        torch.testing.assert_close(ttcore_ref(idx, val, cores, mode, st.shape[mode]), whole,
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_wrapper_on_cpu_takes_plain_version(tensor4d):

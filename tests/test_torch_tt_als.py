@@ -71,6 +71,20 @@ def test_decompose_matches_reference(request, fixture):
     assert_same_model(out["cores"], out["fit_history"], ref.cores, ref.fit_history, st.indices)
 
 
+@pytest.mark.parametrize("fixture", sorted(TT_RANKS))
+def test_reference_method_matches_jax_reference(request, fixture):
+    """method='reference' against the reference's method='reference', both
+    from the TT-SVD init: fits to 1e-5 over 3 iterations, the model at the
+    non-zeros to 1e-4."""
+    st = request.getfixturevalue(fixture)
+    tt_ranks = TT_RANKS[fixture]
+    ref = jax_decompose(st, tt_ranks, format="tt", method="reference", iters=ITERS, init="svd")
+    out = ttstate_to_numpy(decompose(to_port(st), tt_ranks, format="tt", method="reference",
+                                     iters=ITERS, init="svd", device="cpu"))
+    assert len(out["fit_history"]) == ITERS
+    assert_same_model(out["cores"], out["fit_history"], ref.cores, ref.fit_history, st.indices)
+
+
 def test_from_reference_random_cores(tiny_tensor):
     """The reference's random init (its `init_tt_cores` from PRNGKey(seed))
     passed in as initial cores gives the reference's run."""
@@ -119,6 +133,10 @@ def test_bad_arguments_raise(tiny_tensor):
         tt_als(st, (4, 4), iters=1, planned=ws, device="cpu")
     with pytest.raises(ValueError, match="ignored"):
         tt_als(st, (3, 3), iters=1, method="reference", planned=ws, device="cpu")
+    with pytest.raises(ValueError, match="silently ignored"):
+        decompose(st, (3, 3), format="tt", method="reference", iters=1, planned=ws, device="cpu")
+    with pytest.raises(ValueError, match="unknown method"):
+        decompose(st, (3, 3), format="tt", method="approach2", iters=1, device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         tt_als(st, (3, 3), iters=1, method="pallas_sharded", device="cpu")
     with pytest.raises(ValueError, match="expected 'auto', 'svd' or 'random'"):

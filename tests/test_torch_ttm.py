@@ -22,6 +22,7 @@ from repro_torch.core.coo import SparseTensor
 from repro_torch.core.remap import plan_blocks
 from repro_torch.kernels.mttkrp import mttkrp_blocked, rank_padded
 from repro_torch.kernels.ops import make_planned_ttmc
+import repro_torch.kernels.ref as ref_module
 from repro_torch.kernels.ref import ttmc_plan_ref, ttmc_ref
 from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import cols_padded, kron_cols, ttmc_blocked, ttmc_blocked_plain
@@ -120,6 +121,26 @@ def test_planned_ttmc_matches_raw_stream_refs(request, fixture, ranks):
                                        [jnp.asarray(f) for f in np_facs], mode, st.shape[mode]))
         assert_cols_close(got, want)
         assert_cols_close(ttmc_ref(idx, val, facs, mode, st.shape[mode]), want)
+
+
+@pytest.mark.parametrize("fixture", ["tiny_tensor", "tensor4d", "tensor5d"])
+def test_ttmc_ref_chunks_equal_one_step(request, fixture, monkeypatch):
+    """`ttmc_ref` in steps of fewer non-zeros than the stream holds equals
+    the same sum in one step: the reference's unchunked form, which
+    `test_planned_ttmc_matches_raw_stream_refs` holds to the reference's
+    `ttmc_ref`."""
+    st = request.getfixturevalue(fixture)
+    core_ranks = CORE_RANKS[fixture]["mixed"]
+    rng = np.random.default_rng(8)
+    np_facs = [rng.standard_normal((s, r)).astype(np.float32) for s, r in zip(st.shape, core_ranks)]
+    facs = factors_from_numpy(np_facs, "cpu")
+    idx, val = torch.from_numpy(st.indices), torch.from_numpy(st.values)
+    for mode in range(st.nmodes):
+        monkeypatch.setattr(ref_module, "REF_ELEMS", 1 << 40)  # one step
+        whole = ttmc_ref(idx, val, facs, mode, st.shape[mode])
+        monkeypatch.setattr(ref_module, "REF_ELEMS", 97 * 12)  # steps of fewer than nnz
+        torch.testing.assert_close(ttmc_ref(idx, val, facs, mode, st.shape[mode]), whole,
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_wrapper_on_cpu_takes_plain_version(tensor4d):

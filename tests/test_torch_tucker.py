@@ -71,6 +71,20 @@ def test_decompose_matches_reference(request, fixture, core_ranks):
 
 
 @pytest.mark.parametrize("fixture,core_ranks", [CASES[1], CASES[3], CASES[5]])
+def test_reference_method_matches_jax_reference(request, fixture, core_ranks):
+    """method='reference' against the reference's method='reference' from
+    its own initial factors: fits to 1e-5 over 3 iterations, projectors and
+    sign-aligned cores to 1e-4."""
+    st = request.getfixturevalue(fixture)
+    ref = jax_decompose(st, core_ranks, format="tucker", method="reference", iters=ITERS, seed=0)
+    out = tuckerstate_to_numpy(decompose(to_port(st), core_ranks, format="tucker", method="reference",
+                                         iters=ITERS, init_factors=reference_init(st, core_ranks),
+                                         device="cpu"))
+    assert len(out["fit_history"]) == ITERS
+    assert_same_decomposition(out, ref.factors, ref.core, ref.fit_history)
+
+
+@pytest.mark.parametrize("fixture,core_ranks", [CASES[1], CASES[3], CASES[5]])
 def test_reference_method_matches_planned(request, fixture, core_ranks):
     """The port's raw-stream method against its planned method on the CPU."""
     st = to_port(request.getfixturevalue(fixture))
@@ -102,6 +116,11 @@ def test_validates_core_ranks(tiny_tensor):
         tucker_hooi(st, (3, 3, 3), iters=1, planned=ws, device="cpu")
     with pytest.raises(ValueError, match="ignored"):
         tucker_hooi(st, (4, 4, 4), iters=1, method="reference", planned=ws, device="cpu")
+    with pytest.raises(ValueError, match="silently ignored"):
+        decompose(st, (4, 4, 4), format="tucker", method="reference", iters=1, planned=ws,
+                  device="cpu")
+    with pytest.raises(ValueError, match="unknown method"):
+        decompose(st, (4, 4, 4), format="tucker", method="approach1", iters=1, device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
         tucker_hooi(st, (4, 4, 4), iters=1, method="pallas_sharded", device="cpu")
     with pytest.raises(ValueError, match="initial factor 2"):
