@@ -60,6 +60,19 @@ printing one JSON line:
               method="reference"; mttkrp_auto (a plan-cache miss, then a
               hit), tucker_auto and tt_auto against their chunked float64
               references; the plan cache cleared at the end
+  k  wide     fault F3 on the card: a 6-mode tensor (4,096 x 4,096 x 2,048 x
+              1,024 x 512 x 256, 10 M non-zeros) and a 7-mode one (2 M),
+              plans of 5 and 6 input modes on the kernels' wide paths: each
+              kernel against float64 on every mode (MTTKRP rank 16, TTMc at
+              core ranks 4 each, TT-core at TT ranks 4 each), timed per mode
+              beside its bound, and CP, Tucker and TT decompose for 3
+              iterations with the launch counters read; tracing on the card:
+              decompose(..., trace=path) for CP, Tucker and TT at NELL-2 size
+              (span counts and nesting, the steady sweep spans against
+              phases d, f and h, join_trace's achieved_pct) and the sweep
+              with tracing on against off, in turns; the three kernels at
+              NELL-2 size per mode in turns with their sources as they were
+              before the wide paths (scripts/probe_kernels/*_before_wide.cu)
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -73,6 +86,7 @@ import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -118,6 +132,8 @@ from repro_torch.kernels.ops import (  # noqa: E402
 )
 from repro_torch.kernels.ref import ttcore_ref, ttmc_ref  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
+from repro_torch.obs.calibrate import join_trace  # noqa: E402
 from repro_torch.kernels.tt import ttcore_blocked, ttcore_blocked_plain  # noqa: E402
 from repro_torch.kernels.ttm import kron_cols, ttmc_blocked, ttmc_blocked_plain  # noqa: E402
 from repro_torch.tt.als import (  # noqa: E402
@@ -161,6 +177,10 @@ BIG_TILE = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=8192))
 # timed beside them.
 EARLIER_MTTKRP = ROOT / "scripts" / "probe_kernels" / "mttkrp_pr18.cu"
 EARLIER_TTMC = ROOT / "scripts" / "probe_kernels" / "ttmc_pr16.cu"
+# The three kernels' sources as they were before their wide paths, timed in
+# turns with the current ones in phase k.
+BEFORE_WIDE = {k: ROOT / "scripts" / "probe_kernels" / f"{k}_before_wide.cu"
+               for k in ("mttkrp", "ttmc", "ttcore")}
 # Widths that the kernels take in column slices or smaller steps, on the
 # presets (CP) and on WIDE_SHAPE (Tucker, TT): never shrunk to fit.
 WIDE_RANK = 256
@@ -233,6 +253,29 @@ POINTER_BUDGET = 4096
 PATTERN_REPS = 3
 REF_ITERS = 2
 EXACT_CHUNK = 1 << 23
+# Phase k: fault F3's tensors, of 6 and 7 modes (plans of 5 and 6 input
+# modes: the kernels' wide paths), at their ranks; iterations of their
+# decompose runs and launches per timing.
+WIDE_MODE_TENSORS = {5: ((4096, 4096, 2048, 1024, 512, 256), 10_000_000),
+                     6: ((2048, 2048, 1024, 512, 256, 128, 64), 2_000_000)}
+WIDE_MODE_SKEW = 1.1
+WIDE_MODE_RANK = 4  # every Tucker core rank and TT rank; CP takes RANK
+WIDE_MODE_ITERS = 3
+WIDE_MODE_REPS = 5
+# The kernels' NELL-2 times per mode (ms) as phases c, e and g measured them
+# before the wide paths were added, on "NVIDIA H100 80GB HBM3, 700.00 W"
+# (PERF.md), printed beside this run's.
+BEFORE_WIDE_RUN_MS = {"mttkrp": [2.20, 2.21, 2.19], "ttmc": [8.51, 8.48, 8.48],
+                      "ttcore": [12.92, 29.12, 9.42]}
+# The kernels' slowdown against their sources before the wide paths, timed
+# in turns, may not pass this.
+BEFORE_WIDE_SLOWDOWN = 1.02
+BEFORE_WIDE_TURNS = 3
+# Tracing: the steady sweep spans against phases d, f and h's sweep times,
+# and the traced sweep against the untraced one (in turns), at most.
+TRACE_SWEEP_TOL = 0.05
+TRACE_OVERHEAD = 1.03
+TRACE_TURNS = ("on", "off", "off", "on")
 
 
 def emit(obj: dict) -> None:
@@ -404,7 +447,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     earlier_libs = {src: build.BUILD_DIR / "earlier" / src.with_suffix(".so").name
-                    for src in (EARLIER_MTTKRP, EARLIER_TTMC)}
+                    for src in (EARLIER_MTTKRP, EARLIER_TTMC, *BEFORE_WIDE.values())}
     # Beside build_all's nvcc processes.
     earlier = {src: start_nvcc(src, lib) for src, lib in earlier_libs.items()}
     libs = build.build_all()
@@ -519,16 +562,17 @@ def main() -> int:
 
     del state
     torch.cuda.empty_cache()
-    tucker, tucker_fits = tucker_phases(st, gen, ctypes.CDLL(str(earlier_libs[EARLIER_TTMC])))
+    tucker, tucker_fits, tucker_sweep_ms = tucker_phases(st, gen,
+                                                         ctypes.CDLL(str(earlier_libs[EARLIER_TTMC])))
     torch.cuda.empty_cache()
-    tt, tt_fits = tt_phases(st, gen)
+    tt, tt_fits, tt_sweep_ms = tt_phases(st, gen)
     torch.cuda.empty_cache()
     pms_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen)
     torch.cuda.empty_cache()
     slice_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, [x["ms"] for x in modes],
                 torch.device("cuda", torch.cuda.current_device()))
-
-    emit({"kernels": [{
+    torch.cuda.empty_cache()
+    mttkrp_entry = {
         "name": "mttkrp_blocked",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mttkrp.cu",
@@ -538,24 +582,30 @@ def main() -> int:
         "max_abs_err": max(x["max_abs_err"] for x in modes),
         "max_rel_err": max(x["max_rel_err"] for x in modes),
         "ms": sum(x["ms"] for x in modes),
+        "mode_ms": [x["ms"] for x in modes],
         "earlier_kernel": str(EARLIER_MTTKRP.relative_to(ROOT)),
         "earlier_kernel_ms": sum(x["earlier_kernel_ms"] for x in modes),
         "plain_ms": sum(x["plain_ms"] for x in modes),
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
         "library_ms": None,
-    }, tucker, tt]})
+    }
+    entries = {"mttkrp": mttkrp_entry, "ttmc": tucker, "ttcore": tt}
+    wide_phase(st, gen, entries, {"cp": sweep_ms, "tucker": tucker_sweep_ms, "tt": tt_sweep_ms},
+               {k: ctypes.CDLL(str(earlier_libs[src])) for k, src in BEFORE_WIDE.items()})
+
+    emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0
 
 
-def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> tuple[dict, list[float]]:
+def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> tuple[dict, list[float], float]:
     """Phases e and f on the NELL-2-size tensor `st`; `earlier` is the
     library of the TTMc kernel the current one replaced, timed beside it.
-    Returns the TTMc kernel's entry of the `kernels` line and phase f's
-    fits."""
+    Returns the TTMc kernel's entry of the `kernels` line, phase f's fits
+    and the sweep's ms."""
     presets, big = [], []
     for preset, core_ranks in PRESET_CORE_RANKS.items():
         small = frostt_like(preset)
@@ -673,16 +723,18 @@ def tucker_phases(st, gen: torch.Generator, earlier: ctypes.CDLL) -> tuple[dict,
         "max_abs_err": max(x["max_abs_err"] for x in modes),
         "max_rel_err": max(x["max_rel_err"] for x in modes),
         "ms": kernel_ms,
+        "mode_ms": [x["ms"] for x in modes],
         "plain_ms": sum(x["plain_ms"] for x in modes),
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
         "library_ms": None,
-    }, fits
+    }, fits, sweep_ms
 
 
-def tt_phases(st, gen: torch.Generator) -> tuple[dict, list[float]]:
+def tt_phases(st, gen: torch.Generator) -> tuple[dict, list[float], float]:
     """Phases g and h on the NELL-2-size tensor `st`; returns the TT-core
-    kernel's entry of the `kernels` line and phase h's fits."""
+    kernel's entry of the `kernels` line, phase h's fits and the sweep's
+    ms."""
     presets = []
     for preset, tt_ranks in PRESET_TT_RANKS.items():
         small = frostt_like(preset)
@@ -804,11 +856,12 @@ def tt_phases(st, gen: torch.Generator) -> tuple[dict, list[float]]:
         "max_abs_err": max(x["max_abs_err"] for x in modes),
         "max_rel_err": max(x["max_rel_err"] for x in modes),
         "ms": kernel_ms,
+        "mode_ms": [x["ms"] for x in modes],
         "plain_ms": sum(x["plain_ms"] for x in modes),
         "bound_ms": sum(x["bound_ms"] for x in modes),
         "bound_by": "bytes" if all(x["bound_by"] == "bytes" for x in modes) else "operations",
         "library_ms": None,
-    }, fits
+    }, fits, sweep_ms
 
 
 def cfg_label(cfg: MemoryControllerConfig) -> list[int]:
@@ -1186,6 +1239,216 @@ def slice_phase(st, main_fits: dict, planned_ms: list[float], dev: torch.device)
           "rank": RANK, "iters": ITERS, "pointer_budget": POINTER_BUDGET, "remap": remap,
           "mttkrp_per_mode": table, "cp_runs": runs, "reference": reference, "dispatch": dispatch,
           "tol_full": TOL_FULL, "tol_fit_gap": TOL_TUNED_FIT})
+
+
+def wide_mode_kernels(n_in: int, gen: torch.Generator) -> dict:
+    """Phase k's fault F3 part on the tensor of WIDE_MODE_TENSORS[n_in]:
+    each kernel's wide path held to its float64 plain version on every mode
+    and timed beside its bound, then decompose for WIDE_MODE_ITERS
+    iterations on the same workspace with the launch counters read (CP:
+    fits never drop; Tucker: factors orthonormal; TT: finite fits)."""
+    t0 = time.perf_counter()
+    shape, nnz = WIDE_MODE_TENSORS[n_in]
+    st = synthetic_tensor(shape, nnz, seed=0, skew=WIDE_MODE_SKEW)
+    n, iters = st.nmodes, WIDE_MODE_ITERS
+    core_ranks, tt_ranks = (WIDE_MODE_RANK,) * n, (WIDE_MODE_RANK,) * (n - 1)
+    out = {"n_in": n_in, "shape": list(shape), "nnz": st.nnz, "skew": WIDE_MODE_SKEW}
+
+    def mode_row(m, plan, call, bound_at, what, *check_args):
+        rel = check_exact(*check_args, what=what)
+        bound_ms, bound_by = bound_at
+        return {"mode": m, "nblocks": plan.nblocks, "padding": plan.padding_fraction(),
+                "max_rel_err": rel, "ms": cuda_ms(call, WIDE_MODE_REPS), "bound_ms": bound_ms,
+                "bound_by": bound_by}
+
+    def run(fmt, rank, ws, kernel, **kw):
+        reset_launches()
+        state = decompose(st, rank, format=fmt, iters=iters, seed=0, planned=ws, device=ws.device, **kw)
+        torch.cuda.synchronize()
+        fits = state.fit_history
+        launches = {k.__name__: k.launches for k in (mttkrp_blocked, ttmc_blocked, ttcore_blocked)}
+        check(launches[kernel.__name__] == n * iters and sum(launches.values()) == n * iters,
+              f"{n}-mode {fmt}: launches {launches}, expected {n * iters} of {kernel.__name__}")
+        check(len(fits) == iters and all(math.isfinite(f) for f in fits), f"{n}-mode {fmt} fits {fits}")
+        return state, {"fits": fits, "launches": launches[kernel.__name__]}
+
+    ws = make_planned_cp_als(st, RANK, device="cuda")
+    rows = []
+    for m in range(n):
+        plan = ws.plan_for(m)
+        facs = random_padded(plan, [rank_padded(RANK)] * plan.n_in, gen)
+        rows.append(mode_row(m, plan, lambda: mttkrp_blocked(plan, facs), bound(st.shape, st.nnz, m, RANK),
+                             f"{n}-mode MTTKRP mode {m}", mttkrp_blocked, mttkrp_blocked_plain, plan, facs))
+    del plan, facs
+    state, cp = run("cp", RANK, ws, mttkrp_blocked)
+    check(all(b >= a - FIT_DROP for a, b in zip(cp["fits"], cp["fits"][1:])),
+          f"{n}-mode CP fit dropped: {cp['fits']}")
+    out["mttkrp"] = {"rank": RANK, "modes": rows, "cp": cp}
+    del ws, state
+    torch.cuda.empty_cache()
+
+    ws = make_planned_tucker(st, core_ranks, device="cuda")
+    rows = []
+    for m, op in ws.ops.items():
+        facs = random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen)
+        rows.append({"cols": op.out_cols, **mode_row(
+            m, op.plan, lambda: ttmc_blocked(op.plan, facs, op.in_ranks),
+            ttmc_bound(st.shape, st.nnz, m, core_ranks), f"{n}-mode TTMc mode {m}",
+            ttmc_blocked, ttmc_blocked_plain, op.plan, facs, op.in_ranks)})
+    del op, facs
+    state, tucker = run("tucker", core_ranks, ws, ttmc_blocked)
+    ortho = max(float((f.T @ f - torch.eye(r, device=f.device)).abs().max())
+                for f, r in zip(state.factors, core_ranks))
+    check(ortho <= ORTHO_TOL, f"{n}-mode Tucker factors off orthonormal by {ortho}")
+    out["ttmc"] = {"core_ranks": list(core_ranks), "modes": rows,
+                   "tucker": {**tucker, "factor_orthonormality_err": ortho}}
+    del ws, state
+    torch.cuda.empty_cache()
+
+    ws = make_planned_tt(st, tt_ranks, device="cuda")
+    rows = []
+    for m, op in ws.ops.items():
+        mats = random_padded(op.plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen)
+        rows.append({"cols": op.out_cols, **mode_row(
+            m, op.plan, lambda: ttcore_blocked(op.plan, mats, op.in_rank_pairs, op.n_left),
+            ttcore_bound(st.shape, st.nnz, m, tt_ranks), f"{n}-mode TT-core mode {m}",
+            ttcore_blocked, ttcore_blocked_plain, op.plan, mats, op.in_rank_pairs, op.n_left)})
+    del op, mats
+    state, tt = run("tt", tt_ranks, ws, ttcore_blocked, init="random")
+    out["ttcore"] = {"tt_ranks": list(tt_ranks), "modes": rows, "tt": tt}
+    del ws, state
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# Phase k's traced runs: each format's rank, its decompose options, its
+# drive label, its kernel and its workspace builder.
+TRACED = {
+    "cp": (RANK, {}, "cp_als", mttkrp_blocked, make_planned_cp_als),
+    "tucker": (CORE_RANKS, {}, "tucker_hooi", ttmc_blocked, make_planned_tucker),
+    "tt": (TT_RANKS, {"init": "random"}, "tt_als", ttcore_blocked, make_planned_tt),
+}
+
+
+def traced_runs(st, main_sweep_ms: dict) -> list[dict]:
+    """decompose(..., trace=path) for each format on the NELL-2-size tensor:
+    the span counts and nesting, the steady sweep spans against the sweep
+    times of phases d, f and h, join_trace's row; then on one workspace the
+    sweep with tracing on and off in turns (TRACE_TURNS), each drive's
+    steady sweeps timed by its `drive.iter_seconds` series."""
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for fmt, (rank, kw, label, kernel, build_ws) in TRACED.items():
+            path = Path(tmp) / f"{fmt}.jsonl"
+            reset_launches()
+            decompose(st, rank, format=fmt, iters=ITERS, seed=0, trace=str(path), **kw)
+            launches = kernel.launches
+            check(launches == st.nmodes * ITERS, f"traced {fmt}: {launches} launches")
+            recs = obs_trace.load_jsonl(path)
+            counts = {name: sum(r["ph"] == "X" and r["name"] == name for r in recs)
+                      for name in ("decompose", "drive", "sweep", "plan_build")}
+            check(counts == {"decompose": 1, "drive": 1, "sweep": ITERS, "plan_build": st.nmodes},
+                  f"traced {fmt}: span counts {counts}")
+            by_id = {r["id"]: r for r in recs}
+            for r in recs:
+                if r["name"] == "sweep":
+                    drive = by_id[r["parent"]]
+                    check(drive["name"] == "drive" and by_id[drive["parent"]]["name"] == "decompose",
+                          f"traced {fmt}: a sweep span is not under drive under decompose")
+            sweep_ms = [r["dur"] / 1e3 for r in recs if r["name"] == "sweep"]
+            steady_ms = statistics.median(sweep_ms[1:])
+            gap = steady_ms / main_sweep_ms[fmt] - 1.0
+            check(abs(gap) <= TRACE_SWEEP_TOL,
+                  f"traced {fmt}: steady sweep span {steady_ms} ms vs {main_sweep_ms[fmt]} ms")
+            rows = join_trace(path)
+            check(len(rows) == 1 and rows[0]["label"] == label and rows[0]["achieved_pct"] is not None,
+                  f"traced {fmt}: join_trace rows {rows}")
+
+            ws = build_ws(st, rank, device="cuda")
+            turns = {"on": [], "off": []}
+            for turn in TRACE_TURNS:
+                metrics.reset()
+                decompose(st, rank, format=fmt, iters=ITERS, seed=0, planned=ws, device=ws.device,
+                          trace=turn == "on", **kw)
+                turns[turn] += [x * 1e3 for x in metrics.histogram("drive.iter_seconds", label=label).sample[1:]]
+            on_ms, off_ms = statistics.median(turns["on"]), statistics.median(turns["off"])
+            check(on_ms / off_ms <= TRACE_OVERHEAD,
+                  f"{fmt}: traced sweep {on_ms} ms against {off_ms} ms untraced")
+            out.append({"format": fmt, "launches": launches, "span_counts": counts,
+                        "sweep_span_ms": sweep_ms, "steady_sweep_span_ms": steady_ms,
+                        "main_sweep_ms": main_sweep_ms[fmt], "steady_vs_main": gap,
+                        "join_trace": rows[0], "turns": list(TRACE_TURNS),
+                        "traced_sweep_ms": on_ms, "untraced_sweep_ms": off_ms,
+                        "traced_over_untraced": on_ms / off_ms})
+            del ws
+            torch.cuda.empty_cache()
+    return out
+
+
+def before_wide_turns(st, gen: torch.Generator, libs: dict) -> dict:
+    """The three kernels on every mode of the NELL-2-size tensor, in turns
+    with their sources before the wide paths (`libs`): now, before, now,
+    before, ...; the least of each, and the slowdown held to
+    BEFORE_WIDE_SLOWDOWN."""
+    out = {k: [] for k in BEFORE_WIDE}
+
+    def turns(kind: str, m: int, call) -> None:
+        now, before = [], []
+        for _ in range(BEFORE_WIDE_TURNS):
+            now.append(cuda_ms(call, KERNEL_REPS))
+            with kernel_library(kind, libs[kind]):
+                before.append(cuda_ms(call, KERNEL_REPS))
+        slowdown = min(now) / min(before)
+        check(slowdown <= BEFORE_WIDE_SLOWDOWN,
+              f"{kind} mode {m}: {min(now)} ms against {min(before)} ms before the wide path")
+        out[kind].append({"mode": m, "ms": min(now), "before_wide_ms": min(before), "slowdown": slowdown,
+                          "before_wide_run_ms": BEFORE_WIDE_RUN_MS[kind][m]})
+
+    ws = make_planned_cp_als(st, RANK, device="cuda")
+    for m in range(st.nmodes):
+        plan = ws.plan_for(m)
+        facs = random_padded(plan, [rank_padded(RANK)] * plan.n_in, gen)
+        turns("mttkrp", m, lambda: mttkrp_blocked(plan, facs))
+    del ws, plan, facs
+    torch.cuda.empty_cache()
+    ws = make_planned_tucker(st, CORE_RANKS, device="cuda")
+    for m, op in ws.ops.items():
+        facs = random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen)
+        turns("ttmc", m, lambda: ttmc_blocked(op.plan, facs, op.in_ranks))
+    del ws, op, facs
+    torch.cuda.empty_cache()
+    ws = make_planned_tt(st, TT_RANKS, device="cuda")
+    for m, op in ws.ops.items():
+        mats = random_padded(op.plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen)
+        turns("ttcore", m, lambda: ttcore_blocked(op.plan, mats, op.in_rank_pairs, op.n_left))
+    del ws, op, mats
+    torch.cuda.empty_cache()
+    return out
+
+
+def wide_phase(st, gen: torch.Generator, entries: dict, main_sweep_ms: dict, before_libs: dict) -> None:
+    """Phase k: fault F3 on the card (the wide paths at 6 and 7 modes),
+    tracing on the card, and the kernels against their sources before the
+    wide paths.  Adds each kernel's `wide_modes` to its entry of the
+    `kernels` line (`entries`, by kernel)."""
+    phase_t0 = time.perf_counter()
+    wide = [wide_mode_kernels(n_in, gen) for n_in in WIDE_MODE_TENSORS]
+    for kind, entry in entries.items():
+        entry["wide_modes"] = [{
+            "n_in": w["n_in"], "shape": w["shape"], "nnz": w["nnz"],
+            "max_rel_err": max(x["max_rel_err"] for x in w[kind]["modes"]),
+            "mode_ms": [x["ms"] for x in w[kind]["modes"]],
+            "bound_ms": [x["bound_ms"] for x in w[kind]["modes"]],
+        } for w in wide]
+    traced = traced_runs(st, main_sweep_ms)
+    before = before_wide_turns(st, gen, before_libs)
+    emit({"phase": "k", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "wide_modes": wide, "traced": traced,
+          "nell2_main_ms": {k: e["mode_ms"] for k, e in entries.items()},
+          "before_wide": {k: str(src.relative_to(ROOT)) for k, src in BEFORE_WIDE.items()},
+          "before_wide_turns": before, "tol_full": TOL_FULL, "trace_sweep_tol": TRACE_SWEEP_TOL,
+          "trace_overhead_max": TRACE_OVERHEAD, "before_wide_slowdown_max": BEFORE_WIDE_SLOWDOWN})
 
 
 if __name__ == "__main__":

@@ -12,8 +12,15 @@ through the hand-written CUDA kernel of its format.
   PYTHONPATH=src python examples/quickstart_torch.py --algo tt        # GPU: TT-ALS, TT ranks 16
   PYTHONPATH=src python examples/quickstart_torch.py --device cpu --algo tucker --rank 3,5,2
   PYTHONPATH=src python examples/quickstart_torch.py --device cpu --algo tt --rank 3,5
+  PYTHONPATH=src python examples/quickstart_torch.py --trace cp.jsonl
 
 On the CPU (the tiny preset) the kernels' plain PyTorch versions run instead.
+
+--trace PATH exports the trace of the headline decompose() call as JSONL
+(repro_torch.obs.trace: the decompose, drive and sweep spans, each sweep
+carrying its PMS-predicted time; `repro_torch.obs.calibrate.join_trace(PATH)`
+joins them into achieved_pct).  REPRO_TORCH_TRACE=1 (or =PATH) instead
+enables process-global tracing for everything this script runs.
 """
 import argparse
 import time
@@ -21,7 +28,7 @@ import time
 import torch
 
 
-def main(device: str | None, algo: str, rank: str, iters: int) -> None:
+def main(device: str | None, algo: str, rank: str, iters: int, trace: str | None = None) -> None:
     from repro_torch.api import decompose
     from repro_torch.core.coo import frostt_like
     from repro_torch.kernels.mttkrp import mttkrp_blocked
@@ -57,11 +64,16 @@ def main(device: str | None, algo: str, rank: str, iters: int) -> None:
 
     t0 = time.perf_counter()
     state = decompose(st, r, format=algo, iters=iters, seed=0, planned=ws, device=ws.device,
-                      verbose=True)
+                      verbose=True, trace=trace)
     if ws.device.type == "cuda":
         torch.cuda.synchronize()
     print(f"{algo} fit={state.fit_history[-1]:.4f} in {time.perf_counter() - t0:.2f}s "
           f"({kernel.launches} CUDA kernel launches)")
+    if trace:
+        from repro_torch.obs.calibrate import format_table, join_trace
+
+        print(f"trace -> {trace}")
+        print(format_table(join_trace(trace)))
 
 
 if __name__ == "__main__":
@@ -73,5 +85,7 @@ if __name__ == "__main__":
                     help="CP rank; Tucker core ranks (one int for every mode or a comma list); "
                          "or TT ranks (one int for every bond or a comma list of N-1)")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="export the headline decompose() call's trace as JSONL to PATH")
     a = ap.parse_args()
-    main(a.device, a.algo, a.rank, a.iters)
+    main(a.device, a.algo, a.rank, a.iters, a.trace)

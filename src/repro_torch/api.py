@@ -6,6 +6,7 @@
     tt = decompose(st, (16, 16), format="tt")          # TT-ALS on the CUDA TT-core kernel
     cp = decompose(st, 4, device="cpu")                # the plain PyTorch path
     cp = decompose(st, 16, auto_tune=True)             # PMS-picked plan geometry per mode
+    cp = decompose(st, 16, trace="cp.jsonl")           # spans of the call, exported as JSONL
     cp = decompose(st, 16, method="approach1")         # paper Alg. 3 on the remapped stream
     cp = decompose(st, 16, method="approach2", layout="copies")  # Alg. 4, one copy per mode
     tk = decompose(st, (16, 16, 16), format="tucker", method="reference")  # plain TTMc
@@ -19,6 +20,7 @@ import torch
 
 from .core.coo import SparseTensor
 from .core.cp_als import CPState, cp_als
+from .obs import trace as _trace
 from .tt.als import TTState, tt_als
 from .tucker.hooi import TuckerState, tucker_hooi
 
@@ -49,11 +51,12 @@ def decompose(
     cfg=None,
     device: str | torch.device | None = None,
     verbose: bool = False,
+    trace=None,
 ) -> CPState | TuckerState | TTState:
     """Decompose a sparse tensor on the planned memory-controller kernels.
 
     Args:
-      st: host-side COO tensor (>= 3 modes, at most 5).
+      st: host-side COO tensor (>= 3 modes, any number).
       rank: the CP rank (int); the Tucker core ranks (N-tuple; an int
         broadcasts to every mode); or the N-1 interior TT ranks (an int
         broadcasts to every bond).
@@ -87,6 +90,14 @@ def decompose(
         spec from the cache; calibrated on the card on a miss).
       device: CUDA unless given; raises when no GPU is present and no device
         was given.
+      trace: tracing for this call (`repro_torch.obs.trace`): True collects
+        spans into a fresh in-memory `Tracer`; a path collects AND exports
+        them as JSONL on exit; an existing `Tracer` appends to it;
+        None/False leaves the process-global state alone (so
+        `REPRO_TORCH_TRACE=1` still applies).  Restores the previous tracer
+        when the call returns.  The call is a `decompose` span, each plan
+        build a `plan_build` span (synchronized on the card), the drive
+        loop a `drive` span with one `sweep` span per iteration.
 
     Returns:
       `CPState(factors, lam, fit_history)`,
@@ -104,19 +115,21 @@ def decompose(
         raise ValueError(f"layout= and mttkrp_fn= are taken by format='cp' only, not format={format!r}")
     if auto_tune not in (False, True, "cached"):
         raise ValueError(f"auto_tune must be False, True or 'cached', got {auto_tune!r}")
-    tune = dict(auto_tune=auto_tune, spec=spec, cfg=cfg)
-    if format == "tt":
-        ranks = (rank,) * (st.nmodes - 1) if isinstance(rank, int) else tuple(int(r) for r in rank)
-        return tt_als(st, ranks, iters=iters, method=method, tol=tol, init=init or "auto",
-                      init_cores=init_factors, seed=seed, device=device, planned=planned,
-                      verbose=verbose, **tune)
-    if format == "tucker":
-        ranks = (rank,) * st.nmodes if isinstance(rank, int) else tuple(int(r) for r in rank)
-        return tucker_hooi(st, ranks, iters=iters, method=method, tol=tol,
-                           init_factors=init_factors, seed=seed, device=device, planned=planned,
-                           verbose=verbose, **tune)
-    if not isinstance(rank, int):
+    if format == "cp" and not isinstance(rank, int):
         raise ValueError(f"format='cp' takes a single integer rank, got {rank!r}")
-    return cp_als(st, rank, iters=iters, method=method, layout=layout or "remap", tol=tol,
-                  init_factors=init_factors, seed=seed, device=device, mttkrp_fn=mttkrp_fn,
-                  planned=planned, verbose=verbose, **tune)
+    tune = dict(auto_tune=auto_tune, spec=spec, cfg=cfg)
+    with _trace.tracing(trace), _trace.span("decompose", format=format, method=method,
+                                            shape=list(st.shape), nnz=st.nnz, iters=iters):
+        if format == "tt":
+            ranks = (rank,) * (st.nmodes - 1) if isinstance(rank, int) else tuple(int(r) for r in rank)
+            return tt_als(st, ranks, iters=iters, method=method, tol=tol, init=init or "auto",
+                          init_cores=init_factors, seed=seed, device=device, planned=planned,
+                          verbose=verbose, **tune)
+        if format == "tucker":
+            ranks = (rank,) * st.nmodes if isinstance(rank, int) else tuple(int(r) for r in rank)
+            return tucker_hooi(st, ranks, iters=iters, method=method, tol=tol,
+                               init_factors=init_factors, seed=seed, device=device, planned=planned,
+                               verbose=verbose, **tune)
+        return cp_als(st, rank, iters=iters, method=method, layout=layout or "remap", tol=tol,
+                      init_factors=init_factors, seed=seed, device=device, mttkrp_fn=mttkrp_fn,
+                      planned=planned, verbose=verbose, **tune)

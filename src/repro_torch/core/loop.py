@@ -1,6 +1,6 @@
 """Host-side per-iteration bookkeeping and argument contracts shared by the
-drivers.  Counterpart of `finish_iter` (without the obs events),
-`check_planned_method` and `check_workspace` in `repro.core.loop`, and of
+drivers.  Counterpart of `finish_iter`, `check_planned_method` and
+`check_workspace` in `repro.core.loop`, and of
 the drivers' shared handling of given initial factors."""
 from __future__ import annotations
 
@@ -10,6 +10,9 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 
 __all__ = ["check_planned_method", "check_workspace", "finish_iter", "given_factors"]
 
@@ -59,12 +62,16 @@ def check_workspace(planned, cls: type, built_for: dict, device: torch.device) -
 
 def finish_iter(fits, fit, it: int, tol, verbose: bool, label: str) -> bool:
     """Record the fit scalar (the loop's one device->host sync) and decide
-    whether to stop: on a non-finite fit (with a RuntimeWarning), or when
-    `tol` is given and the fit moved less than it since the last iteration."""
+    whether to stop: on a non-finite fit (with a RuntimeWarning, the
+    `resilience.nonfinite_fit` counter and a `nonfinite_fit` trace event),
+    or when `tol` is given and the fit moved less than it since the last
+    iteration."""
     fits.append(float(fit))
     if verbose:
         print(f"[{label}] iter {it:3d} fit={fits[-1]:.6f}")
     if not math.isfinite(fits[-1]):
+        _metrics.counter("resilience.nonfinite_fit", label=label).inc()
+        _trace.event("nonfinite_fit", label=label, it=it, fit=repr(fits[-1]))
         warnings.warn(
             f"[{label}] non-finite fit ({fits[-1]}) at iteration {it}; stopping early",
             RuntimeWarning,

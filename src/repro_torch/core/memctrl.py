@@ -21,6 +21,15 @@ CTA, computed from each kernel's layout (`KernelLaunch`):
     256), the warps' chain vectors and the row counts, beside the static
     slot fields.
 
+Plans of more than 4 input modes (tensors of 6 or more modes) launch each
+kernel's wide path (`wide_launch` in each source), whose layout differs:
+MTTKRP keeps the sorted chunk as arrays of (2 + n_in) ints a slot, TTMc
+adds each quad's leading digits ((n_in - 1) x NQ x 32 ints) and keeps its
+permutation in dynamic shared memory, TT-core keeps its slot fields (n_in
+row offsets, a value and a tile row) there too; each stages as many slots
+as the budget holds, up to its template's count, and builds for 2 CTAs per
+SM.
+
 Each also reports the row parts and column slices a geometry forces
 (`blocked.cuh::launch_ranges` runs one CTA per (block range, part,
 slice)); each part and slice reads its block range's stream and sorts it
@@ -54,10 +63,13 @@ _THREADS = 256
 _WARPS = _THREADS // 32
 _QUAD = 4  # floats in a quad (one float4)
 _MAX_ROWS = 4096  # MTTKRP and TTMc: tile rows per CTA before row parts
+_MAX_TEMPLATE_IN = 4  # input modes the kernels' templates take; more launch the wide path
+_WIDE_CTAS_PER_SM = 2  # the wide kernels' __launch_bounds__
 _MTTKRP_SORT_SLOTS = 2048
-_MTTKRP_SORTED_BYTES = {2: 16, 3: 24, 4: 24}  # sizeof(Sorted<N_IN>)
 _MTTKRP_STATIC = (2 * _WARPS + 1 + _WARPS) * 4  # s_run_row (with the carry's row), s_warp
-_TTMC_STATIC = 8192 * 2 + 2 * _WARPS * 4 + _WARPS * 4  # s_perm, s_edge_row, s_warp
+_TTMC_SORT_SLOTS = 8192  # 16-bit offsets
+_TTMC_EDGE_STATIC = 2 * _WARPS * 4 + _WARPS * 4  # s_edge_row, s_warp
+_TTMC_STATIC = _TTMC_SORT_SLOTS * 2 + _TTMC_EDGE_STATIC  # and the templates' static s_perm
 _TT_CHUNK = _THREADS  # most slots per step
 _TT_TILE_BYTES = 64 * 1024  # largest tile before row parts
 _TT_MIN_SLICE = 8
@@ -72,6 +84,24 @@ def _ceil_div(a: int, b: int) -> int:
 
 def _round4(x: int) -> int:
     return _ceil_div(x, 4) * 4
+
+
+def _mttkrp_sorted_bytes(n_in: int) -> int:
+    """Shared-memory bytes of one sorted slot of the MTTKRP kernel: a row,
+    a value and n_in factor rows, 4 bytes each; the templates' struct
+    (`Sorted<N_IN>`) aligns to 16 bytes for 2 inputs and to 8 otherwise,
+    the wide path's arrays not at all."""
+    raw = 4 * (2 + n_in)
+    if n_in > _MAX_TEMPLATE_IN:
+        return raw
+    align = 16 if n_in == 2 else 8
+    return _ceil_div(raw, align) * align
+
+
+def _staged(budget: int, fixed: int, slot: int, most: int) -> int:
+    """Slots a wide launch stages at once: as many as the budget holds
+    beside `fixed` bytes, at most `most`; 0 where not one fits."""
+    return min(most, (budget - fixed) // slot) if fixed + slot <= budget else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,41 +188,61 @@ class MemoryControllerConfig:
 
     def mttkrp_launch(self, spec: GPUSpec, ld: int, n_in: int = 2) -> KernelLaunch:
         """The MTTKRP kernel on factors of `ld` columns (the padded rank)
-        with `n_in` input modes (`launch_width` and `launch` in
-        csrc/mttkrp.cu): groups of G lanes holding NQ quads each."""
-        if not 2 <= n_in <= 4:
-            raise ValueError(f"the kernel takes 2-4 input modes, got {n_in}")
+        with `n_in` >= 2 input modes (`launch_width` and `launch` in
+        csrc/mttkrp.cu, or its wide path past 4 inputs): groups of G lanes
+        holding NQ quads each."""
+        if n_in < 2:
+            raise ValueError(f"the kernel takes 2 or more input modes, got {n_in}")
         nquads = _ceil_div(ld, _QUAD)
         if nquads <= 32:
             g, nq = next(g for g in (4, 8, 16, 32) if nquads <= g), 1
         else:
             g, nq = 32, next((q for q in (2, 4) if nquads <= 32 * q), 8)
         parts, rows = self._row_parts()
-        dyn = ((2 * _WARPS + 1) * g * nq * 16 + _MTTKRP_SORT_SLOTS * _MTTKRP_SORTED_BYTES[n_in]
-               + rows * 4)
-        smem = dyn + _MTTKRP_STATIC
-        return KernelLaunch(smem, parts, _ceil_div(nquads, g * nq), smem <= spec.smem_per_block,
-                            _occupancy(spec, smem, 4 if n_in == 2 and nq == 1 else 2))
+        fixed = (2 * _WARPS + 1) * g * nq * 16 + rows * 4
+        slot = _mttkrp_sorted_bytes(n_in)
+        slices = _ceil_div(nquads, g * nq)
+        if n_in <= _MAX_TEMPLATE_IN:
+            smem = fixed + _MTTKRP_SORT_SLOTS * slot + _MTTKRP_STATIC
+            return KernelLaunch(smem, parts, slices, smem <= spec.smem_per_block,
+                                _occupancy(spec, smem, 4 if n_in == 2 and nq == 1 else 2))
+        budget = spec.smem_per_block - _MTTKRP_STATIC
+        chunk = _staged(budget, fixed, slot, _MTTKRP_SORT_SLOTS)
+        smem = fixed + chunk * slot + _MTTKRP_STATIC
+        return KernelLaunch(smem, parts, slices, chunk > 0,
+                            _occupancy(spec, smem, _WIDE_CTAS_PER_SM))
 
     def ttmc_launch(self, spec: GPUSpec, in_ranks: tuple[int, ...]) -> KernelLaunch:
         """The TTMc kernel at input ranks `in_ranks` (`launch_quads` and
-        `launch` in csrc/ttmc.cu): each lane holds NQ quads of the row."""
+        `launch` in csrc/ttmc.cu, or its wide path past 4 inputs): each lane
+        holds NQ quads of the row."""
+        n_in = len(in_ranks)
         r_last = int(in_ranks[-1])
         nquads = (math.prod(int(r) for r in in_ranks) // r_last) * _ceil_div(r_last, _QUAD)
         nq = next((q for q in (1, 2, 4) if nquads <= 32 * q), 8)
         parts, rows = self._row_parts()
-        smem = _WARPS * 2 * nq * 32 * 16 + rows * 4 + _TTMC_STATIC
-        return KernelLaunch(smem, parts, _ceil_div(nquads, 32 * nq), smem <= spec.smem_per_block,
-                            _occupancy(spec, smem, 4 if nq <= 2 else 2))
+        slices = _ceil_div(nquads, 32 * nq)
+        fixed = _WARPS * 2 * nq * 32 * 16 + rows * 4
+        if n_in <= _MAX_TEMPLATE_IN:
+            smem = fixed + _TTMC_STATIC
+            return KernelLaunch(smem, parts, slices, smem <= spec.smem_per_block,
+                                _occupancy(spec, smem, 4 if nq <= 2 else 2))
+        fixed += (n_in - 1) * nq * 32 * 4  # the quads' leading digits
+        chunk = _staged(spec.smem_per_block - _TTMC_EDGE_STATIC, fixed, 2, _TTMC_SORT_SLOTS)
+        smem = fixed + chunk * 2 + _TTMC_EDGE_STATIC
+        return KernelLaunch(smem, parts, slices, chunk > 0,
+                            _occupancy(spec, smem, _WIDE_CTAS_PER_SM))
 
     def tt_launch(self, spec: GPUSpec, in_pairs: tuple[tuple[int, int], ...],
                   n_left: int) -> KernelLaunch:
         """The TT-core kernel at input bond pairs `in_pairs` with `n_left`
         inputs chained from the left (`ttcore_blocked_launch` and `launch`
-        in csrc/ttcore.cu): the tile's slice and row parts, then as many
-        staged slots as fit (at most 256).  Does not fit where not one
-        staged slot fits beside a 1-row tile.  A step takes at most that
-        many slots of one plan block."""
+        in csrc/ttcore.cu, or its wide path past 4 inputs, whose slot
+        fields are dynamic and whose chains all take the warp path): the
+        tile's slice and row parts, then as many staged slots as fit (at
+        most 256).  Does not fit where not one staged slot fits beside a
+        1-row tile.  A step takes at most that many slots of one plan
+        block."""
         n_in = len(in_pairs)
         rl = [int(a) for a, _ in in_pairs]
         rr = [int(b) for _, b in in_pairs]
@@ -205,8 +255,9 @@ class MemoryControllerConfig:
             return (rr[n] % 4 == 0 and 1 <= rr4 <= _TT_GROUP and 32 % rr4 == 0
                     and rl[n] * rr4 <= _TT_GROUP * _TT_GROUP_K)
 
+        wide = n_in > _MAX_TEMPLATE_IN
         copy = n_in == 2 and n_left == 1
-        group = (not copy and n_left <= 2 and n_in - n_left <= 2
+        group = (not copy and not wide and n_left <= 2 and n_in - n_left <= 2
                  and (n_left < 2 or group_step_ok(1)) and (n_in - n_left < 2 or group_step_ok(n_in - 2)))
         maxw4 = 0 if copy or group else _round4(max([1] + rl + rr))
         stage4 = _round4(rl_m) + _round4(rr_m)
@@ -214,25 +265,30 @@ class MemoryControllerConfig:
         slice_ = _TT_MIN_SLICE
         while slice_ < ncols and slice_ < max_slice:
             slice_ *= 2
-        static = n_in * _TT_CHUNK * 8 + 2 * _TT_CHUNK * 4 + _WARPS * 4  # s_in, s_val, s_row, s_warp
+        # The slot fields (s_in, s_val, s_row): static in the templates,
+        # dynamic beside each staged slot in the wide path; and s_warp.
+        fields = n_in * 8 + 2 * 4
+        static = (0 if wide else _TT_CHUNK * fields) + _WARPS * 4
         budget = max(0, spec.smem_per_block - static)
 
         def dyn(parts: int, chunk: int) -> int:
             rows = _ceil_div(self.cache.tile_i, parts)
-            return (rows * slice_ + chunk * stage4 + _WARPS * 2 * maxw4) * 4 + rows * 4
+            return ((rows * slice_ + chunk * stage4 + _WARPS * 2 * maxw4) * 4 + rows * 4
+                    + (chunk * fields if wide else 0))
 
         tile_i = self.cache.tile_i
         parts = 1
         while parts < tile_i and _ceil_div(tile_i, parts) * slice_ * 4 > _TT_TILE_BYTES:
             parts *= 2
-        slot = stage4 * 4
+        slot = stage4 * 4 + (fields if wide else 0)
         while parts < tile_i and dyn(parts, 0) + slot > budget:
             parts *= 2
         used = dyn(parts, 0)
         fits = used + slot <= budget
         chunk = min((budget - used) // slot, _TT_CHUNK) if fits else 0
         smem = dyn(parts, chunk) + static
-        return KernelLaunch(smem, parts, _ceil_div(ncols, slice_), fits, _occupancy(spec, smem, 4),
+        return KernelLaunch(smem, parts, _ceil_div(ncols, slice_), fits,
+                            _occupancy(spec, smem, _WIDE_CTAS_PER_SM if wide else 4),
                             min(chunk, self.dma.blk) / _THREADS)
 
 

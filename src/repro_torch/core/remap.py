@@ -29,11 +29,14 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import time
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from .coo import SparseTensor
 from .memctrl import CacheEngineConfig
 
@@ -405,6 +408,25 @@ def _assemble_plan(st, mode, g: _GroupedStream, tile_i, blk, vals, iloc,
     return plan
 
 
+def _record_plan_metrics(plan: BlockPlan, dt: float, builder: str) -> None:
+    """Layout statistics every build records, with the reference's
+    definitions: build seconds (host clock; the device work is complete
+    where a trace synchronized the build's span), padding and occupancy of
+    the padded stream, block count, and the blocks-per-output-tile
+    imbalance (max over occupied tiles / mean: the skew an output tile's
+    residency sees), computed on the plan's device."""
+    pad = plan.padding_fraction()
+    _metrics.histogram("plan.build_seconds", builder=builder).observe(dt)
+    _metrics.histogram("plan.padding_fraction").observe(pad)
+    _metrics.histogram("plan.occupancy").observe(1.0 - pad)
+    _metrics.histogram("plan.nblocks").observe(plan.nblocks)
+    if plan.nblocks:
+        per_tile = torch.bincount(plan.block_it.to(torch.int64))
+        per_tile = per_tile[per_tile > 0].to(torch.float64)
+        _metrics.histogram("plan.tile_block_imbalance").observe(
+            float((per_tile.max() / per_tile.mean()).item()))
+
+
 def plan_blocks(
     st: SparseTensor,
     mode: int,
@@ -423,8 +445,18 @@ def plan_blocks(
     padded group sizes -> per-group destination offsets) and
     `repeat_interleave` expands per-group tile ids to per-block metadata.
     Bit-identical to `plan_blocks_reference` and to the reference package's
-    `plan_blocks`."""
+    `plan_blocks`.  Traced as a `plan_build` span (synchronized on a CUDA
+    device) and recorded in the `plan.*` metrics."""
     device = resolve_device(device)
+    t0 = time.perf_counter()
+    with _trace.span("plan_build", mode=mode, builder="vectorized", nnz=st.nnz, blk=blk,
+                     device=device):
+        plan = _plan_blocks(st, mode, tile_i, tile_j, tile_k, blk, in_tiles, device)
+    _record_plan_metrics(plan, time.perf_counter() - t0, "vectorized")
+    return plan
+
+
+def _plan_blocks(st, mode, tile_i, tile_j, tile_k, blk, in_tiles, device) -> BlockPlan:
     g = _grouped_stream(st, mode, tile_i, tile_j, tile_k, blk, in_tiles, device)
     n_in = len(g.in_modes)
     total = g.total
@@ -477,8 +509,18 @@ def plan_blocks_reference(
     device: str | torch.device | None = None,
 ) -> BlockPlan:
     """Per-group Python-loop layout build: the executable specification
-    `plan_blocks` must match bit for bit.  Small tensors only."""
+    `plan_blocks` must match bit for bit.  Small tensors only.  Traced and
+    recorded as `plan_blocks` is, as builder "reference"."""
     device = resolve_device(device)
+    t0 = time.perf_counter()
+    with _trace.span("plan_build", mode=mode, builder="reference", nnz=st.nnz, blk=blk,
+                     device=device):
+        plan = _plan_blocks_reference(st, mode, tile_i, tile_j, tile_k, blk, in_tiles, device)
+    _record_plan_metrics(plan, time.perf_counter() - t0, "reference")
+    return plan
+
+
+def _plan_blocks_reference(st, mode, tile_i, tile_j, tile_k, blk, in_tiles, device) -> BlockPlan:
     g = _grouped_stream(st, mode, tile_i, tile_j, tile_k, blk, in_tiles, device)
     n_in = len(g.in_modes)
     total = g.total

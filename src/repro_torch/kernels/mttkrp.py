@@ -4,7 +4,10 @@ kernel (`csrc/mttkrp.cu`) and its plain PyTorch version.
 Counterpart of `repro.kernels.mttkrp_pallas` (`mttkrp_pallas_call`,
 `pad_factor`, `rank_padded`).  `mttkrp_blocked` launches the CUDA kernel for
 CUDA tensors and runs `mttkrp_blocked_plain` only for tensors on the CPU;
-`mttkrp_blocked.launches` counts kernel launches.
+`mttkrp_blocked.launches` counts kernel launches.  Plans of 2-4 input modes
+launch the kernel's templates; more take its wide path, which reads each
+input's pointers from a per-launch table in device memory
+(`wide_table`), so the number of modes has no limit.
 
 Unlike the Pallas kernel, which leaves output tiles no block visits
 undefined (the reference masks them afterwards), the wrapper allocates the
@@ -19,12 +22,19 @@ import torch
 
 from ..core.remap import BlockPlan
 
-__all__ = ["check_plan_args", "mttkrp_blocked", "mttkrp_blocked_plain", "pad_factor", "rank_padded"]
+__all__ = ["MAX_TEMPLATE_IN", "check_plan_args", "mttkrp_blocked", "mttkrp_blocked_plain",
+           "pad_factor", "rank_padded", "wide_table"]
 
 #: Slots per step of the plain version (bounds its gather temporaries) ...
 PLAIN_CHUNK = 1 << 24
 #: ... and slot-by-lane elements per step, which binds for rows wider than 16.
 PLAIN_ELEMS = 1 << 28
+#: The most input modes the kernels' templates take (csrc/*.cu, kMaxIn);
+#: plans with more launch the wide path.
+MAX_TEMPLATE_IN = 4
+#: 8-byte words of a wide launch's per-input table, per input: room for the
+#: 3 pointers and up to 10 ints of any of the three kernels.
+_WIDE_WORDS_PER_INPUT = 8
 
 
 def rank_padded(rank: int) -> int:
@@ -77,14 +87,16 @@ def mttkrp_blocked_plain(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -
 def check_plan_args(plan: BlockPlan, factors_pad: Sequence[torch.Tensor], dtype: torch.dtype,
                     min_cols: Sequence[int]) -> None:
     """Raise on a plan stream or padded factors that the blocked kernels do
-    not take: 2-4 input modes; every stream array contiguous, on the plan's
+    not take: at least 2 input modes (tensors of 3 or more modes, as the
+    reference takes); every stream array contiguous, on the plan's
     device, of the layout's dtype and shape (values of `dtype`, float32 for
     the kernels); one 2-D contiguous `dtype` factor per input mode with at
     least plan.in_rows[n] rows and min_cols[n] columns.  Shared by every
     kernel wrapper on the BlockPlan layout, so all reject the same plans."""
     n_in = plan.n_in
-    if not 2 <= n_in <= 4:
-        raise ValueError(f"the kernel takes 2-4 input modes (3-5-mode tensors), got {n_in}")
+    if n_in < 2:
+        raise ValueError(f"the kernels take 2 or more input modes (tensors of 3 or more modes), "
+                         f"got {n_in}")
     if len(factors_pad) != n_in:
         raise ValueError(f"{len(factors_pad)} factors for {n_in} input modes")
     total = plan.nblocks * plan.blk
@@ -122,17 +134,40 @@ def _check(plan: BlockPlan, factors_pad: Sequence[torch.Tensor], dtype: torch.dt
                              f"every factor takes one width")
 
 
+def wide_table(n_in: int, device: torch.device) -> torch.Tensor:
+    """The device buffer a wide launch fills with its per-input table
+    (allocated here: the kernels allocate nothing).  Freed when the caller
+    drops it; a later allocation of its memory on the same stream runs
+    after the launch that reads it."""
+    return torch.empty((_WIDE_WORDS_PER_INPUT * n_in,), dtype=torch.int64, device=device)
+
+
+#: ctypes argument types of a launch's tail: (device, stream) for the
+#: templates, (table, table words, device, stream) for the wide path.
+LAUNCH_TAIL = [ctypes.c_int, ctypes.c_void_p]
+WIDE_LAUNCH_TAIL = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def launch_fn(lib: ctypes.CDLL, name: str, argtypes: list):
+    """`lib`'s C function `name`, its argument types set on first use (a
+    library need not have the wide path's symbol until it is launched)."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_VP, _PTRS = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+#: The arguments both MTTKRP launches take first.
+_HEAD = [_VP, _VP, _VP, _PTRS, _PTRS, _PTRS, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]
+
+
 def _library() -> ctypes.CDLL:
     from .build import load  # builds on first use, never at import
 
-    lib = load("mttkrp")
-    if lib.mttkrp_blocked_launch.argtypes is None:
-        vp, ptrs = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
-        lib.mttkrp_blocked_launch.argtypes = [
-            vp, vp, vp, ptrs, ptrs, ptrs, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, vp]
-        lib.mttkrp_blocked_launch.restype = ctypes.c_int
-    return lib
+    return load("mttkrp")
 
 
 def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -142,7 +177,8 @@ def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torc
     CUDA tensors launch the Hopper kernel on the current stream (and count
     one launch); CPU tensors run `mttkrp_blocked_plain`.  Any tile_i and
     width run: the kernel splits a tile of more than 4,096 rows into row
-    parts, and a row of more than 1,024 columns into column slices.  Raises
+    parts, and a row of more than 1,024 columns into column slices.  Plans
+    of more than MAX_TEMPLATE_IN input modes take the wide path.  Raises
     RuntimeError if the launch fails.  Returns (plan.out_rows, factor width)
     float32, zero wherever no non-zero lands."""
     dev = plan.vals.device
@@ -158,12 +194,17 @@ def mttkrp_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor]) -> torc
     def ptr_array(ts):
         return (ctypes.c_void_p * n_in)(*(t.data_ptr() for t in ts))
 
-    err = lib.mttkrp_blocked_launch(
-        plan.vals.data_ptr(), plan.iloc.data_ptr(), plan.block_it.data_ptr(),
-        ptr_array(plan.in_locs), ptr_array(plan.block_in), ptr_array(factors_pad),
-        (ctypes.c_int * n_in)(*plan.in_tiles), n_in, plan.nblocks, plan.blk,
-        plan.tile_i, ld, out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (plan.vals.data_ptr(), plan.iloc.data_ptr(), plan.block_it.data_ptr(),
+            ptr_array(plan.in_locs), ptr_array(plan.block_in), ptr_array(factors_pad),
+            (ctypes.c_int * n_in)(*plan.in_tiles), n_in, plan.nblocks, plan.blk,
+            plan.tile_i, ld, out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if n_in <= MAX_TEMPLATE_IN:
+        err = launch_fn(lib, "mttkrp_blocked_launch", _HEAD + LAUNCH_TAIL)(*args, dev.index, stream)
+    else:
+        table = wide_table(n_in, dev)
+        err = launch_fn(lib, "mttkrp_blocked_wide_launch", _HEAD + WIDE_LAUNCH_TAIL)(
+            *args, table.data_ptr(), table.numel(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"mttkrp_blocked kernel launch failed: cudaError_t {err}")
     mttkrp_blocked.launches += 1

@@ -34,6 +34,7 @@ from ..core.pms import search as pms_search
 from ..core.remap import BlockPlan, plan_blocks, plans_validated, validate_plan
 from ..device import resolve_device
 from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
 from .ref import ttcore_ref, ttmc_ref
 from .tt import tt_out_cols, tt_out_pair, ttcore_blocked
@@ -416,9 +417,10 @@ def plan_cache_config(maxsize: int | None = None) -> int:
 
 def _evict_to_cap() -> None:
     while len(_PLAN_CACHE) > _PLAN_CACHE_CAP:
-        _PLAN_CACHE.popitem(last=False)
+        key, _ = _PLAN_CACHE.popitem(last=False)
         _PLAN_CACHE_EVICTIONS["count"] += 1
         _metrics.counter("plan_cache.evictions").inc()
+        _trace.event("plan_cache_evict", kind=str(key[0]), mode=int(key[2]))
 
 
 def plan_cache_stats() -> dict:
@@ -454,7 +456,8 @@ def _planned_cached(kind: str, st: SparseTensor, mode: int, rank_key,
     fingerprint, mode, rank key, controller config, device): a repeated
     call stops paying for the Tensor Remapper.  The kind keeps MTTKRP, TTMc
     and TT-core ops of one tensor, mode and rank apart.  With
-    REPRO_VALIDATE_PLANS set, a hit validates the cached plan again."""
+    REPRO_VALIDATE_PLANS set, a hit validates the cached plan again.  Traced
+    as a `plan_cache_hit` event or a `plan_cache_build` span."""
     key = (kind, st.fingerprint(), mode, rank_key, cfg or MemoryControllerConfig(), device)
     stats = _PLAN_CACHE_STATS[kind]
     t0 = time.perf_counter()
@@ -466,9 +469,11 @@ def _planned_cached(kind: str, st: SparseTensor, mode: int, rank_key,
             validate_plan(op.plan)
         _metrics.counter("plan_cache.hits", kind=kind).inc()
         _metrics.histogram("plan_cache.hit_seconds", kind=kind).observe(time.perf_counter() - t0)
+        _trace.event("plan_cache_hit", kind=kind, mode=mode)
         return op
     stats["misses"] += 1
-    op = build()
+    with _trace.span("plan_cache_build", kind=kind, mode=mode):
+        op = build()
     _PLAN_CACHE[key] = op
     _evict_to_cap()
     _metrics.counter("plan_cache.misses", kind=kind).inc()

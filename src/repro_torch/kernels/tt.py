@@ -19,7 +19,8 @@ the true rl_k * rr_k lanes of each row are read.
 `ttcore_blocked_plain` only for tensors on the CPU;
 `ttcore_blocked.launches` counts kernel launches.  As for MTTKRP and TTMc,
 the wrapper allocates the output zeroed: rows no non-zero reaches and padded
-lanes are exactly 0.
+lanes are exactly 0, and plans of more than 4 input modes take the kernel's
+wide path.
 """
 from __future__ import annotations
 
@@ -29,7 +30,16 @@ from typing import Sequence
 import torch
 
 from ..core.remap import BlockPlan
-from .mttkrp import _rows, check_plan_args, rank_padded
+from .mttkrp import (
+    LAUNCH_TAIL,
+    MAX_TEMPLATE_IN,
+    WIDE_LAUNCH_TAIL,
+    _rows,
+    check_plan_args,
+    launch_fn,
+    rank_padded,
+    wide_table,
+)
 
 __all__ = ["chain_left", "chain_right", "tt_out_cols", "tt_out_pair", "ttcore_blocked",
            "ttcore_blocked_plain"]
@@ -137,14 +147,13 @@ def ttcore_blocked_plain(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
 def _library() -> ctypes.CDLL:
     from .build import load  # builds on first use, never at import
 
-    lib = load("ttcore")
-    if lib.ttcore_blocked_launch.argtypes is None:
-        vp, ptrs, ints = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-        lib.ttcore_blocked_launch.argtypes = [
-            vp, vp, vp, ptrs, ptrs, ptrs, ints, ints, ints, ints, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, vp]
-        lib.ttcore_blocked_launch.restype = ctypes.c_int
-    return lib
+    return load("ttcore")
+
+
+_VP, _PTRS, _INTS = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+#: The arguments both TT-core launches take first.
+_HEAD = [_VP, _VP, _VP, _PTRS, _PTRS, _PTRS, _INTS, _INTS, _INTS, _INTS, ctypes.c_int, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]
 
 
 #: The launch's return code when not even one slot's staged vectors fit
@@ -163,7 +172,8 @@ def ttcore_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     CUDA tensors launch the Hopper kernel on the current stream (one launch,
     counted); CPU tensors run `ttcore_blocked_plain`.  Any bonds and any
     tile_i run: the kernel sizes its steps and splits its output tile by
-    rows from the shared-memory budget.  Returns
+    rows from the shared-memory budget; plans of more than MAX_TEMPLATE_IN
+    input modes take the wide path.  Returns
     (plan.out_rows, rank_padded(rl_m * rr_m)) float32, zero wherever no
     non-zero lands and in every padded lane."""
     dev = plan.vals.device
@@ -183,13 +193,18 @@ def ttcore_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     def ptr_array(ts):
         return (ctypes.c_void_p * n_in)(*(t.data_ptr() for t in ts))
 
-    err = lib.ttcore_blocked_launch(
-        plan.vals.data_ptr(), plan.iloc.data_ptr(), plan.block_it.data_ptr(),
-        ptr_array(plan.in_locs), ptr_array(plan.block_in), ptr_array(factors_pad),
-        ints(plan.in_tiles), ints(f.shape[1] for f in factors_pad), ints(a for a, _ in pairs),
-        ints(b for _, b in pairs), n_in, n_left, plan.nblocks, plan.blk, plan.tile_i,
-        out.shape[1], out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (plan.vals.data_ptr(), plan.iloc.data_ptr(), plan.block_it.data_ptr(),
+            ptr_array(plan.in_locs), ptr_array(plan.block_in), ptr_array(factors_pad),
+            ints(plan.in_tiles), ints(f.shape[1] for f in factors_pad), ints(a for a, _ in pairs),
+            ints(b for _, b in pairs), n_in, n_left, plan.nblocks, plan.blk, plan.tile_i,
+            out.shape[1], out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if n_in <= MAX_TEMPLATE_IN:
+        err = launch_fn(lib, "ttcore_blocked_launch", _HEAD + LAUNCH_TAIL)(*args, dev.index, stream)
+    else:
+        table = wide_table(n_in, dev)
+        err = launch_fn(lib, "ttcore_blocked_wide_launch", _HEAD + WIDE_LAUNCH_TAIL)(
+            *args, table.data_ptr(), table.numel(), dev.index, stream)
     if err == _SMEM_TOO_SMALL:
         raise ValueError(
             f"ttcore_blocked: one slot's staged vectors of in_rank_pairs {pairs} "

@@ -13,7 +13,8 @@ rank r_m and its own padded width; only its true r_m lanes are read.
 `ttmc_blocked` launches the CUDA kernel for CUDA tensors and runs
 `ttmc_blocked_plain` only for tensors on the CPU; `ttmc_blocked.launches`
 counts kernel launches.  As for MTTKRP, the wrapper allocates the output
-zeroed: rows no non-zero reaches and padded lanes are exactly 0.
+zeroed: rows no non-zero reaches and padded lanes are exactly 0, and plans
+of more than 4 input modes take the kernel's wide path.
 """
 from __future__ import annotations
 
@@ -24,7 +25,16 @@ from typing import Sequence
 import torch
 
 from ..core.remap import BlockPlan
-from .mttkrp import _rows, check_plan_args, rank_padded
+from .mttkrp import (
+    LAUNCH_TAIL,
+    MAX_TEMPLATE_IN,
+    WIDE_LAUNCH_TAIL,
+    _rows,
+    check_plan_args,
+    launch_fn,
+    rank_padded,
+    wide_table,
+)
 
 __all__ = ["cols_padded", "kron_cols", "kron_rows", "ttmc_blocked", "ttmc_blocked_plain"]
 
@@ -91,17 +101,16 @@ def ttmc_blocked_plain(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     return out
 
 
+_VP, _PTRS, _INTS = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
+#: The arguments both TTMc launches take first.
+_HEAD = [_VP, _VP, _VP, _PTRS, _PTRS, _PTRS, _INTS, _INTS, _INTS, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]
+
+
 def _library() -> ctypes.CDLL:
     from .build import load  # builds on first use, never at import
 
-    lib = load("ttmc")
-    if lib.ttmc_blocked_launch.argtypes is None:
-        vp, ptrs, ints = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-        lib.ttmc_blocked_launch.argtypes = [
-            vp, vp, vp, ptrs, ptrs, ptrs, ints, ints, ints, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, ctypes.c_int, vp]
-        lib.ttmc_blocked_launch.restype = ctypes.c_int
-    return lib
+    return load("ttmc")
 
 
 def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
@@ -114,7 +123,10 @@ def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     counted, whatever the output width); CPU tensors run
     `ttmc_blocked_plain`.  Any tile_i and ranks run: the kernel splits a
     tile into row parts and a row wider than its registers hold into column
-    slices.  Raises RuntimeError if the launch fails.  Returns
+    slices; plans of more than MAX_TEMPLATE_IN input modes take the wide
+    path.  Raises ValueError where the wide path's digits leave no room for
+    a sorted slot in a CTA's shared memory, RuntimeError if the launch
+    fails.  Returns
     (plan.out_rows, cols_padded(P)) float32, zero wherever no non-zero lands
     and in every padded lane."""
     dev = plan.vals.device
@@ -133,13 +145,20 @@ def ttmc_blocked(plan: BlockPlan, factors_pad: Sequence[torch.Tensor],
     def ptr_array(ts):
         return (ctypes.c_void_p * n_in)(*(t.data_ptr() for t in ts))
 
-    err = lib.ttmc_blocked_launch(
-        plan.vals.data_ptr(), plan.iloc.data_ptr(), plan.block_it.data_ptr(),
-        ptr_array(plan.in_locs), ptr_array(plan.block_in), ptr_array(factors_pad),
-        ints(plan.in_tiles), ints(f.shape[1] for f in factors_pad), ints(in_ranks), n_in,
-        plan.nblocks, plan.blk, plan.tile_i, out.shape[1], out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (plan.vals.data_ptr(), plan.iloc.data_ptr(), plan.block_it.data_ptr(),
+            ptr_array(plan.in_locs), ptr_array(plan.block_in), ptr_array(factors_pad),
+            ints(plan.in_tiles), ints(f.shape[1] for f in factors_pad), ints(in_ranks), n_in,
+            plan.nblocks, plan.blk, plan.tile_i, out.shape[1], out.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if n_in <= MAX_TEMPLATE_IN:
+        err = launch_fn(lib, "ttmc_blocked_launch", _HEAD + LAUNCH_TAIL)(*args, dev.index, stream)
+    else:
+        table = wide_table(n_in, dev)
+        err = launch_fn(lib, "ttmc_blocked_wide_launch", _HEAD + WIDE_LAUNCH_TAIL)(
+            *args, table.data_ptr(), table.numel(), dev.index, stream)
+    if err == -1:
+        raise ValueError(f"ttmc_blocked: the wide path's digits of in_ranks {in_ranks} leave no "
+                         f"room for a sorted slot in one CTA's shared-memory budget")
     if err != 0:
         raise RuntimeError(f"ttmc_blocked kernel launch failed: cudaError_t {err}")
     ttmc_blocked.launches += 1

@@ -1,22 +1,29 @@
 """The `PlannedWorkspace` protocol: what a planned decomposition workspace
 does that is not format-specific.  Counterpart of
-`repro.kernels.workspace`, without guards, fallback or checkpoints.
+`repro.kernels.workspace`, with its tracing and metrics but without
+guards, fallback or checkpoints.
 
   * rank padding and device-resident factors (`pad_factors` /
     `unpad_factors` / `padded_rows` / `rank_pads`), parameterized by each
     mode's true lane width `lane_ranks`;
   * `drive` — the host loop: pad once, one sweep per iteration, the
-    host-side tol early exit on the fit scalar, unpad at the end.
+    host-side tol early exit on the fit scalar, unpad at the end; traced
+    as a `drive` span with one `sweep` span per iteration (carrying the
+    PMS-predicted sweep time while a tracer is active) and recorded in the
+    `drive.*` metrics.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Sequence
 
 import torch
 
 from ..core.loop import finish_iter
 from ..core.remap import BlockPlan
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from .mttkrp import pad_factor, rank_padded
 
 __all__ = ["PlannedWorkspace"]
@@ -99,12 +106,39 @@ class PlannedWorkspace:
         """Pad once, one sweep per iteration (the first with the
         first-iteration convention), stop early on `tol` or a non-finite
         fit, unpad.  Returns (true-shape factors, aux of the last sweep,
-        fit history)."""
+        fit history).
+
+        Each sweep's span encloses the fit's transfer to the host, so it
+        ends after the sweep's device work; `drive.iter_seconds` times the
+        same interval."""
         fits: list[float] = []
         facs = self.pad_factors(factors)
         aux = None
-        for it in range(iters):
-            facs, aux, fit = self.sweep(facs, *args, first=(it == 0))
-            if finish_iter(fits, fit, it, tol, verbose, label):
-                break
+        m_iter = _metrics.histogram("drive.iter_seconds", label=label)
+        m_delta = _metrics.histogram("drive.fit_delta", label=label)
+        m_count = _metrics.counter("drive.iterations", label=label)
+        predicted_s = self._predicted_sweep_s() if _trace.active() is not None else None
+        with _trace.span("drive", label=label, iters=iters, start=0):
+            for it in range(iters):
+                t_sweep = time.perf_counter()
+                with _trace.span("sweep", label=label, it=it, predicted_s=predicted_s):
+                    facs, aux, fit = self.sweep(facs, *args, first=(it == 0))
+                    fit = float(fit)
+                m_iter.observe(time.perf_counter() - t_sweep)
+                m_count.inc()
+                if fits:
+                    m_delta.observe(fit - fits[-1])
+                if finish_iter(fits, fit, it, tol, verbose, label):
+                    break
         return self.unpad_factors(facs), aux, fits
+
+    def _predicted_sweep_s(self) -> float | None:
+        """PMS-predicted seconds of one sweep where the workspace has the
+        `pms_estimates` hook (PlannedCPALS / PlannedTucker / PlannedTT):
+        the sum of its modes' exact t_total; None otherwise.  Attached to
+        traced sweep spans, so a trace alone carries what
+        `obs.calibrate.join_trace` needs."""
+        hook = getattr(self, "pms_estimates", None)
+        if hook is None:
+            return None
+        return float(sum(e.t_total for e in hook().values()))

@@ -1,10 +1,10 @@
 """Predicted-vs-achieved PMS accounting.
 
-Counterpart of `repro.obs.calibrate` (its direct join; `accuracy_records`
-waits for the bench and `join_trace` for the trace module).  It joins the
-exact per-plan PMS predictions (`predict_from_plan` / `predict_ttmc` /
-`predict_tt`, from the workspace's built BlockPlans) with measured sweep
-times:
+Counterpart of `repro.obs.calibrate` (`accuracy_records` waits for the
+bench).  It joins the exact per-plan PMS predictions (`predict_from_plan` /
+`predict_ttmc` / `predict_tt`, from the workspace's built BlockPlans) with
+measured sweep times, given directly (`calibration_row`) or read from a
+trace's `sweep` spans, which carry the prediction (`join_trace`):
 
     achieved_pct = 100 * t_predicted / t_measured
 
@@ -14,6 +14,8 @@ model is optimistic for that (format, config, tensor).
 from __future__ import annotations
 
 import dataclasses
+import statistics
+from pathlib import Path
 from typing import Any, Mapping, Sequence
 
 __all__ = [
@@ -21,6 +23,7 @@ __all__ = [
     "predicted_sweep_seconds",
     "CalibrationRow",
     "calibration_row",
+    "join_trace",
     "format_table",
 ]
 
@@ -65,6 +68,53 @@ def calibration_row(ws: Any, measured_s: float, *, format: str, preset: str,
     return CalibrationRow(format=format, preset=preset,
                           predicted_s=predicted_sweep_seconds(ws, spec),
                           measured_s=float(measured_s))
+
+
+def _steady_state_s(durs_us: Sequence[float]) -> float:
+    """Median sweep duration in seconds, excluding the first sweep when more
+    than one was recorded (the first pays the kernels' build and load and
+    the first-iteration convention)."""
+    steady = list(durs_us[1:]) if len(durs_us) > 1 else list(durs_us)
+    return statistics.median(steady) / 1e6
+
+
+def join_trace(path: str | Path | Sequence[Mapping]) -> list[dict]:
+    """The offline join: group a trace's "sweep" spans by (label, preset)
+    and compute achieved_pct where the spans carry `predicted_s`.
+
+    Accepts a JSONL path or pre-loaded records.  Returns one dict per group:
+    ``{"label", "preset", "n_sweeps", "measured_s", "predicted_s",
+    "achieved_pct"}``; the last two are None for spans without a prediction
+    (the workspace had no PMS hook)."""
+    if isinstance(path, (str, Path)):
+        from .trace import load_jsonl
+
+        records: Sequence[Mapping] = load_jsonl(path)
+    else:
+        records = path
+    groups: dict[tuple, dict] = {}
+    for r in records:
+        if r.get("ph") != "X" or r.get("name") != "sweep":
+            continue
+        args = r.get("args", {})
+        key = (str(args.get("label", "?")), str(args.get("preset", "?")))
+        g = groups.setdefault(key, {"durs": [], "predicted": None})
+        g["durs"].append(float(r.get("dur", 0.0)))
+        if args.get("predicted_s") is not None:
+            g["predicted"] = float(args["predicted_s"])
+    rows = []
+    for (label, preset), g in sorted(groups.items()):
+        measured = _steady_state_s(g["durs"])
+        pred = g["predicted"]
+        rows.append({
+            "label": label,
+            "preset": preset,
+            "n_sweeps": len(g["durs"]),
+            "measured_s": measured,
+            "predicted_s": pred,
+            "achieved_pct": 100.0 * pred / measured if pred and measured > 0 else None,
+        })
+    return rows
 
 
 def format_table(rows: Sequence[Mapping]) -> str:

@@ -1,7 +1,11 @@
 """Metrics registry: counters / gauges / histograms for the planned engine.
 
-The port's own copy of `repro.obs.metrics` (stdlib only).  So far the PMS
-(`pms.configs_evaluated`, `pms.searches`) and the autotune cache
+The port's own copy of `repro.obs.metrics` (stdlib only).  The drive loop
+(`drive.{iter_seconds,fit_delta,iterations}`), the plan builders
+(`plan.{build_seconds,padding_fraction,occupancy,nblocks,
+tile_block_imbalance}`), the plan cache (`plan_cache.*`), the non-finite-fit
+stop (`resilience.nonfinite_fit`), the PMS (`pms.configs_evaluated`,
+`pms.searches`) and the autotune cache
 (`autotune_cache.{hits,misses,spec_hits,spec_misses}`) record here.
 
 Stdlib-only and always-on: unlike spans (obs.trace), metric updates are a

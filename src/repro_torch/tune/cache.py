@@ -25,8 +25,9 @@ reference's:
     payloads change meaning.
 
 Hits and misses are counted in `repro_torch.obs.metrics`
-(``autotune_cache.{hits,misses,spec_hits,spec_misses}``).  The reference's
-trace events wait for the port's trace module.
+(``autotune_cache.{hits,misses,spec_hits,spec_misses}``) and traced as the
+reference's are (`autotune_spec_store` and `autotune_cache_hit` events, an
+`autotune_cache_search` span).
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from ..core.memctrl import (
     spec_to_dict,
 )
 from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 
 __all__ = [
     "SCHEMA_VERSION",
@@ -223,6 +225,7 @@ class AutotuneCache:
             data["specs"][backend] = {"spec": spec_to_dict(spec), "meta": meta}
 
         self._update(mutate)
+        _trace.event("autotune_spec_store", backend=backend)
 
     # -- winning configurations -------------------------------------------
 
@@ -286,8 +289,10 @@ def cached_config(
     cfg = cache.get_config(key)
     if cfg is not None:
         AutotuneCache._count("hits", kind=kind)
+        _trace.event("autotune_cache_hit", kind=kind, mode=int(mode))
         return cfg
     AutotuneCache._count("misses", kind=kind)
-    cfg = search_thunk()
+    with _trace.span("autotune_cache_search", kind=kind, mode=int(mode)):
+        cfg = search_thunk()
     cache.put_config(key, cfg, backend=backend, kind=kind, mode=int(mode))
     return cfg

@@ -34,6 +34,7 @@ import torch
 
 from ..core.memctrl import CacheEngineConfig, DMAEngineConfig, GPUSpec, MemoryControllerConfig
 from ..device import resolve_device
+from ..obs import trace as _trace
 from .cache import AutotuneCache, current_backend, default_cache
 
 __all__ = [
@@ -305,19 +306,21 @@ def calibrate(
     """The calibration workflow on `device` (CUDA unless given): the
     microbenchmarks (card only), one block-sweep sample per configuration
     in `cfgs` on the `frostt_like(preset)` tensor, the least-squares fit
-    and the validation rows.  Writes nothing: `calibrate_and_store`
-    persists."""
+    and the validation rows, traced as a `tune_calibrate` span.  Writes
+    nothing: `calibrate_and_store` persists."""
     from ..core.coo import frostt_like
 
     dev = resolve_device(device)
-    bw = measure_hbm_bw(device=dev) if microbench else None
-    pf = measure_peak_flops_f32(device=dev) if microbench else None
-    st = frostt_like(preset)
-    samples = tuple(sweep_sample(st, rank, cfg, reps=reps, seed=seed, device=dev) for cfg in cfgs)
-    fitted = fit_spec(samples, base, fallback_hbm_bw=bw, fallback_peak_flops=pf)
-    return CalibrationResult(spec=fitted, backend=_backend_of(dev), samples=samples,
-                             stream_hbm_bw=bw, matmul_peak_flops_f32=pf,
-                             validation=_validation_rows(samples, fitted, base, preset))
+    backend = _backend_of(dev)
+    with _trace.span("tune_calibrate", backend=backend, preset=preset):
+        bw = measure_hbm_bw(device=dev) if microbench else None
+        pf = measure_peak_flops_f32(device=dev) if microbench else None
+        st = frostt_like(preset)
+        samples = tuple(sweep_sample(st, rank, cfg, reps=reps, seed=seed, device=dev) for cfg in cfgs)
+        fitted = fit_spec(samples, base, fallback_hbm_bw=bw, fallback_peak_flops=pf)
+        return CalibrationResult(spec=fitted, backend=backend, samples=samples,
+                                 stream_hbm_bw=bw, matmul_peak_flops_f32=pf,
+                                 validation=_validation_rows(samples, fitted, base, preset))
 
 
 #: Smaller workload for the implicit `spec="measured"` cache-miss path.

@@ -8,8 +8,10 @@ may pick: blocks of 128 and 1,024 slots, tiles (1,024, 128, 512)), and the
 CP-ALS, Tucker HOOI and TT-ALS paths on CUDA, also with auto_tune=True,
 against the CPU path; every launch of the MTTKRP kernel on the hot rows
 within the bound, 20 times over; the compute patterns (approach 1 and 2)
-on the card against float64; and the one-shot dispatchers' launches and
-plan cache.  Marked `gpu`; they
+on the card against float64; the one-shot dispatchers' launches and
+plan cache; and the kernels' wide paths on tensors of 6 and 7 modes (5 and
+6 input modes; MTTKRP also on hot rows, 20 launches a mode), with CP,
+Tucker and TT on a 6-mode tensor against the CPU path.  Marked `gpu`; they
 skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
@@ -390,4 +392,77 @@ def test_auto_tune_runs_on_the_card(cuda, fmt, rank):
                   auto_tune=True, device=cuda)
     assert counter.launches == before + 3 * st.nmodes
     b = decompose(st, rank, format=fmt, iters=3, init_factors=init, auto_tune=True, device="cpu")
+    assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
+
+
+# Tensors of 6 and 7 modes: plans of 5 and 6 input modes, which each kernel
+# takes on its wide path (the inputs' pointers in a table in device memory,
+# a loop over them at run time).
+WIDE_MODES = {5: (24, 20, 18, 16, 14, 12), 6: (16, 14, 12, 12, 10, 10, 8)}
+
+
+def wide_modes_tensor(n_in):
+    return synthetic_tensor(WIDE_MODES[n_in], 20_000, seed=0, skew=0.8)
+
+
+@pytest.mark.parametrize("rank", [16, 256])
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("n_in", [5, 6])
+def test_wide_path_mttkrp(cuda, n_in, geometry, rank):
+    check_mttkrp(cuda, wide_modes_tensor(n_in), rank, GEOMETRIES[geometry])
+
+
+@pytest.mark.parametrize("rank", [16, 256])
+@pytest.mark.parametrize("n_in", [5, 6])
+def test_wide_path_mttkrp_on_hot_rows_every_launch(cuda, n_in, rank):
+    """Zipf skew 3 on every mode of a 6- or 7-mode tensor: each of 20
+    launches on every mode within TOL of float64."""
+    shape = (2_000, 300, 400, 200, 100, 50, 40)[: n_in + 1]
+    st = synthetic_tensor(shape, 50_000, seed=0, skew=3.0)
+    ws = make_planned_cp_als(st, rank, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for m in range(st.nmodes):
+        plan = ws.plan_for(m)
+        facs = [torch.randn((r, rank_padded(rank)), generator=gen, device=cuda) for r in plan.in_rows]
+        want = mttkrp_blocked_plain(dataclasses.replace(plan, vals=plan.vals.double()),
+                                    [f.double() for f in facs])
+        for _ in range(20):
+            assert_cols_within(mttkrp_blocked(plan, facs), want, rank_padded(rank))
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("n_in", [5, 6])
+def test_wide_path_ttmc(cuda, n_in, geometry):
+    """Mixed core ranks (2, 3, 4, ...): up to 576 Kronecker columns, in
+    column slices of the widest lanes' quads."""
+    core_ranks = tuple(2 + m % 3 for m in range(n_in + 1))
+    check_ttmc(cuda, wide_modes_tensor(n_in), core_ranks, GEOMETRIES[geometry])
+
+
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+@pytest.mark.parametrize("n_in", [5, 6])
+def test_wide_path_ttcore(cuda, n_in, geometry):
+    """Mixed TT ranks: every chain step changes bond, left and right chains
+    of up to 5 steps."""
+    tt_ranks = tuple(3 + k % 3 for k in range(n_in))
+    check_ttcore(cuda, wide_modes_tensor(n_in), tt_ranks, GEOMETRIES[geometry])
+
+
+@pytest.mark.parametrize("fmt", ["cp", "tucker", "tt"])
+def test_wide_path_decompose_matches_cpu(cuda, fmt):
+    """CP, Tucker and TT on a 6-mode tensor on the card against the CPU path
+    from the same initial factors: fits within 1e-5 over 3 iterations."""
+    st = wide_modes_tensor(5)
+    if fmt == "cp":
+        rank = 8
+        gen = torch.Generator().manual_seed(1)
+        init = [torch.randn((s, rank), generator=gen) / math.sqrt(rank) for s in st.shape]
+    elif fmt == "tucker":
+        rank = (3,) * st.nmodes
+        init = [f.cpu() for f in init_tucker_factors(st.shape, rank, seed=1, device=cuda)]
+    else:
+        rank = (3,) * (st.nmodes - 1)
+        init = [c.cpu() for c in init_tt_cores(st.shape, rank, seed=1, device=cuda)]
+    a = decompose(st, rank, format=fmt, iters=3, init_factors=[f.to(cuda) for f in init], device=cuda)
+    b = decompose(st, rank, format=fmt, iters=3, init_factors=init, device="cpu")
     assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
