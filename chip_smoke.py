@@ -41,14 +41,20 @@ printing one JSON line:
               just after
   i  pms      the PMS and auto-tuning on the same tensor: hypergraph stats
               and the analytic search per kernel and mode (host seconds,
-              top 5); each kernel held to its float64 plain version and
-              timed at the search's top 3 and the default (MTTKRP on every
-              mode, TTMc on mode 0, TT-core on modes 0 and 1), beside the
-              exact prediction, its achieved share and the Spearman rank of
-              predicted against measured; decompose(..., auto_tune=True)
-              for CP, Tucker and TT with the launch counters read, fits
-              held to phases d, f and h; a warm auto_tune="cached" call
-              that evaluates no configuration; the calibration
+              top 5); each kernel timed at the search's top 3, the default,
+              its last 2 (of at most 500 M slots) and every tile at 1,024
+              (MTTKRP on every mode, TTMc on mode 0, TT-core on modes 0 and
+              1), beside the exact prediction and each of its terms, its
+              achieved share and the Spearman rank of predicted against
+              measured (at least 0.5 where the times spread more than 10%);
+              the picks and the default held to their float64 plain
+              version; the first pick in turns with the default (at most
+              2% slower); decompose(..., auto_tune=True) for CP, Tucker and
+              TT with the launch counters read, fits held to phases d, f and
+              h, the tuned sweep in turns with the default's (no slower than
+              the default's spread); a warm auto_tune="cached" call that
+              evaluates no configuration (the search's picks held in the
+              cache, the fit within 1e-5 of the first call's); the calibration
               microbenchmarks and the block-sweep fit of the PMS's rates
   j  slice    the non-planned methods on the same tensor: CP rank 16 from
               phase d's initial factors by approach 1 and 2 on the remap
@@ -73,6 +79,23 @@ printing one JSON line:
               with tracing on against off, in turns; the three kernels at
               NELL-2 size per mode in turns with their sources as they were
               before the wide paths (scripts/probe_kernels/*_before_wide.cu)
+  l  resil.   the resilience layer at NELL-2 size: a clean rerun of each
+              format (its peak device memory against the workspace's
+              admission_bytes; its fits against phases d, f and h, the
+              run-to-run gap); CP drive sweeps in turns with guards off,
+              "raise", "fallback" and check_factors_every=1, and the bare
+              sweep-and-sync loop; a NaN injected
+              after iteration 1 into CP, Tucker and TT under "restart" and
+              "fallback" (events, launches after the switch, the fallback
+              sweeps' ms, final fits against the clean runs); CP and TT
+              killed in a subprocess before iteration 3 (exit 17) and
+              resumed from their checkpoints (restored factors and fits
+              bit for bit, later fits against a clean run, ms per
+              checkpoint_save); a budget one byte under the CP default's
+              footprint (admitted at blk 128); on a preset, a budget under
+              every rung down to blk 8 (approach 1) and an impossible one
+              (AdmissionError); each kernel at blk 64, 32, 16 and 8 on the
+              presets against float64
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -93,6 +116,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -131,7 +155,17 @@ from repro_torch.kernels.ops import (  # noqa: E402
     tucker_auto,
 )
 from repro_torch.kernels.ref import ttcore_ref, ttmc_ref  # noqa: E402
+from repro_torch.api import _lane_ranks  # noqa: E402
 from repro_torch.obs import metrics  # noqa: E402
+from repro_torch.resilience import (  # noqa: E402
+    FLOOR_BLK,
+    AdmissionError,
+    GuardConfig,
+    admission_bytes,
+    reference_footprint_bytes,
+)
+from repro_torch.testing import faults  # noqa: E402
+from repro_torch.train import CheckpointManager  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.obs.calibrate import join_trace  # noqa: E402
 from repro_torch.kernels.tt import ttcore_blocked, ttcore_blocked_plain  # noqa: E402
@@ -149,6 +183,7 @@ from repro_torch.tt.als import (  # noqa: E402
 )
 from repro_torch.tune import (  # noqa: E402
     DEFAULT_CALIBRATION_CFGS,
+    cached_config,
     fit_spec,
     measure_hbm_bw,
     measure_peak_flops_f32,
@@ -241,6 +276,22 @@ SWEEP_REPS = 3
 PMS_TIMED = 3
 PMS_LISTED = 5
 PMS_MODES = {"mttkrp": (0, 1, 2), "ttmc": (0,), "tt": (0, 1)}
+# Beside the picks and the default, phase i times the PMS's last-ranked
+# configurations (PMS_LAST of them), leaving out those whose layout the
+# occupancy model puts past PMS_MAX_SLOTS slots (small tiles at large
+# blocks: mostly padding, a plan the card cannot build beside its
+# temporaries), and every tile at 1,024.  Where the times spread more than
+# PMS_SPREAD (max over min), the Spearman rank of predicted against
+# measured must reach PMS_SPEARMAN_MIN; each first pick, timed in turns
+# with the default (PICK_TURNS), may be at most PICK_SLOWDOWN slower.
+PMS_LAST = 2
+PMS_MAX_SLOTS = 500_000_000
+PMS_ALL_1024 = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=1024, tile_j=1024, tile_k=1024))
+PMS_SPREAD = 1.10
+PMS_SPEARMAN_MIN = 0.5
+PICK_SLOWDOWN = 1.02
+PICK_TURNS = ("pick", "default", "default", "pick")
+SWEEP_TURNS = ("default", "tuned", "tuned", "default")
 # Fits of the auto-tuned runs against phases d, f and h: the same algorithm
 # on other plan geometries, float32 sums in another order.
 TOL_TUNED_FIT = 1e-4
@@ -276,6 +327,25 @@ BEFORE_WIDE_TURNS = 3
 TRACE_SWEEP_TOL = 0.05
 TRACE_OVERHEAD = 1.03
 TRACE_TURNS = ("on", "off", "off", "on")
+# Phase l: the resilience layer.  The guard settings timed in turns on one
+# CP workspace with the bare sweep-and-sync loop ("sync"); an unguarded
+# drive's steady sweep against that loop's, at most this far apart; a recovered run's final fit against its clean run's;
+# the iteration a killed subprocess dies before, and its exit code; the
+# preset the full admission ladder runs on, and the ladder's blocks each
+# kernel is held to float64 at.
+GUARD_SETTINGS = {"off": None, "raise": GuardConfig("raise"), "fallback": GuardConfig("fallback"),
+                  "factors_every_1": GuardConfig("raise", check_factors_every=1)}
+GUARD_TURNS = ("off", "sync", "raise", "fallback", "factors_every_1",
+               "factors_every_1", "fallback", "raise", "sync", "off")
+UNGUARDED_SWEEP_TOL = 0.01
+# The drive syncs each iteration's fit to the host, where phase d's sweeps
+# run back to back: 0.7-1.4% on the CP sweep on an H100.
+DRIVE_SYNC_TOL = 0.03
+TOL_RECOVERED = 1e-4
+KILL_AT = 3
+KILL_CODE = 17
+LADDER_PRESET = "4d_small"
+LADDER_BLKS = (64, 32, 16, 8)
 
 
 def emit(obj: dict) -> None:
@@ -567,7 +637,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     tt, tt_fits, tt_sweep_ms = tt_phases(st, gen)
     torch.cuda.empty_cache()
-    pms_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen)
+    pms_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits},
+              {"cp": sweep_ms, "tucker": tucker_sweep_ms, "tt": tt_sweep_ms}, gen)
     torch.cuda.empty_cache()
     slice_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, [x["ms"] for x in modes],
                 torch.device("cuda", torch.cuda.current_device()))
@@ -593,6 +664,8 @@ def main() -> int:
     entries = {"mttkrp": mttkrp_entry, "ttmc": tucker, "ttcore": tt}
     wide_phase(st, gen, entries, {"cp": sweep_ms, "tucker": tucker_sweep_ms, "tt": tt_sweep_ms},
                {k: ctypes.CDLL(str(earlier_libs[src])) for k, src in BEFORE_WIDE.items()})
+    torch.cuda.empty_cache()
+    resilience_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, sweep_ms, gen)
 
     emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
@@ -904,40 +977,49 @@ def check_exact(kernel, plain, plan, facs, *extra, what: str) -> float:
     return rel_err
 
 
-def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
+def pms_phase(st, main_fits: dict, main_sweep_ms: dict, gen: torch.Generator) -> None:
     """Phase i on the NELL-2-size tensor `st`: the PMS's search, its picks
-    held to the plain versions and timed against its predictions, the
-    auto-tuned decompositions against phases d, f and h (`main_fits`), a
-    warm autotune cache, and the calibration of the PMS's rates."""
+    held to the plain versions and timed against its predictions beside the
+    default, its last-ranked and every tile at 1,024, the auto-tuned
+    decompositions against phases d, f and h (`main_fits`, and their sweeps
+    `main_sweep_ms`), a warm autotune cache, and the calibration of the
+    PMS's rates."""
     spec = GPUSpec()
     phase_t0 = t0 = time.perf_counter()
     hs = hg_stats(st)
     stats_s = time.perf_counter() - t0
     kernels = {"mttkrp": (RANK, None), "ttmc": (RANK, CORE_RANKS), "tt": (RANK, TT_RANKS)}
-    searches, picks = [], {}
+    searches, picks, last = [], {}, {}
     for kernel, (rank, ranks) in kernels.items():
         for m in range(st.nmodes):
             metrics.reset()
             t0 = time.perf_counter()
-            top = pms.search(hs, m, rank, spec=spec, kernel=kernel, core_ranks=ranks,
-                             top_k=PMS_LISTED)
+            ranked = pms.search(hs, m, rank, spec=spec, kernel=kernel, core_ranks=ranks, top_k=256)
             search_s = time.perf_counter() - t0
             scored = metrics.snapshot()["counters"][
                 f"pms.configs_evaluated{{kernel={kernel},sharded=false}}"]
-            picks[kernel, m] = [e.cfg for e in top[:PMS_TIMED]]
+            picks[kernel, m] = [e.cfg for e in ranked[:PMS_TIMED]]
+            last[kernel, m] = [e.cfg for e in ranked if e.nblocks * e.cfg.dma.blk <= PMS_MAX_SLOTS
+                               ][-PMS_LAST:]
             searches.append({"kernel": kernel, "mode": m, "search_s": search_s, "scored": scored,
                              "top": [{"cfg": cfg_label(e.cfg), "predicted_ms": e.t_total * 1e3,
                                       "smem_bytes": e.smem_bytes, "row_parts": e.row_parts}
-                                     for e in top]})
+                                     for e in ranked[:PMS_LISTED]]})
 
-    # Each kernel at the top configurations and the default: held to its
-    # float64 plain version, timed, and set beside the exact prediction.
+    # Each kernel at the top configurations, the default, the last-ranked
+    # and every tile at 1,024: timed and set beside the exact prediction
+    # and each of its terms; the picks and the default also held to the
+    # float64 plain version; the first pick timed in turns with the default.
+    default_cfg = MemoryControllerConfig()
     timed = []
     for kernel, modes in PMS_MODES.items():
         rank, ranks = kernels[kernel]
         for m in modes:
-            cfgs = picks[kernel, m] + [c for c in [MemoryControllerConfig()] if c not in picks[kernel, m]]
-            rows = []
+            cfgs = []
+            for cfg in picks[kernel, m] + [default_cfg] + last[kernel, m] + [PMS_ALL_1024]:
+                if cfg not in cfgs:
+                    cfgs.append(cfg)
+            rows, kept = [], {}
             for cfg in cfgs:
                 what = f"{kernel} mode {m} at {cfg_label(cfg)}"
                 if kernel == "mttkrp":
@@ -955,21 +1037,43 @@ def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
                     facs = random_padded(op.plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen)
                     args = (ttcore_blocked, ttcore_blocked_plain, op.plan, facs, op.in_rank_pairs, op.n_left)
                     est = pms.predict_tt(op.plan, ranks, cfg, spec)
-                rel_err = check_exact(*args, what=what)
+                checked = cfg == default_cfg or cfg in picks[kernel, m]
+                rel_err = check_exact(*args, what=what) if checked else None
                 ker, _, plan, *rest = args
                 ms = cuda_ms(lambda: ker(plan, *rest), KERNEL_REPS)
-                rows.append({"cfg": cfg_label(cfg), "default": cfg == MemoryControllerConfig(),
-                             "nblocks": plan.nblocks, "padding": plan.padding_fraction(),
-                             "predicted_ms": est.t_total * 1e3, "t_stream_ms": est.t_stream * 1e3,
-                             "t_factor_ms": est.t_factor * 1e3, "t_out_ms": est.t_out * 1e3,
-                             "t_compute_ms": est.t_compute * 1e3, "ms": ms,
+                role = ("pick" if cfg in picks[kernel, m] else "default" if cfg == default_cfg
+                        else "last" if cfg in last[kernel, m] else "all_1024")
+                rows.append({"cfg": cfg_label(cfg), "role": role, "nblocks": plan.nblocks,
+                             "padding": plan.padding_fraction(), "predicted_ms": est.t_total * 1e3,
+                             **{f"{t}_ms": getattr(est, t) * 1e3 for t in (
+                                 "t_stream", "t_reread", "t_factor", "t_out", "t_gather",
+                                 "t_flush", "t_compute")},
+                             "occupancy": est.occupancy, "step_share": est.step_share,
+                             "wave_share": est.wave_share, "ms": ms,
                              "achieved_share": est.t_total * 1e3 / ms, "smem_bytes": est.smem_bytes,
                              "row_parts": est.row_parts, "col_slices": est.col_slices,
                              "max_rel_err": rel_err})
+                if cfg in (default_cfg, picks[kernel, m][0]):
+                    kept[cfg] = lambda ker=ker, plan=plan, rest=rest: ker(plan, *rest)
                 del op, facs, args, plan, rest, ker
                 torch.cuda.empty_cache()
-            timed.append({"kernel": kernel, "mode": m, "configs": rows,
-                          "spearman": spearman([r["predicted_ms"] for r in rows], [r["ms"] for r in rows])})
+            turns = {"pick": [], "default": []}
+            for turn in PICK_TURNS:
+                turns[turn].append(cuda_ms(kept[picks[kernel, m][0] if turn == "pick" else default_cfg],
+                                           KERNEL_REPS))
+            del kept
+            torch.cuda.empty_cache()
+            pick_over_default = min(turns["pick"]) / min(turns["default"])
+            spread = max(r["ms"] for r in rows) / min(r["ms"] for r in rows)
+            rho = spearman([r["predicted_ms"] for r in rows], [r["ms"] for r in rows])
+            check(pick_over_default <= PICK_SLOWDOWN,
+                  f"{kernel} mode {m}: the first pick {cfg_label(picks[kernel, m][0])} runs "
+                  f"{pick_over_default} of the default in turns")
+            check(spread <= PMS_SPREAD or rho >= PMS_SPEARMAN_MIN,
+                  f"{kernel} mode {m}: Spearman {rho} over times that spread {spread}")
+            timed.append({"kernel": kernel, "mode": m, "configs": rows, "spearman": rho,
+                          "spread": spread, "turns": list(PICK_TURNS), "pick_ms": turns["pick"],
+                          "default_ms": turns["default"], "pick_over_default": pick_over_default})
 
     # decompose(..., auto_tune=True) for every format: the workspace it
     # builds (plan build, picks, sweep), then the call itself.
@@ -986,7 +1090,7 @@ def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
         plan_build_s = time.perf_counter() - t0
         chosen = [cfg_label(ws.ops[m].cfg) for m in range(st.nmodes)]
         if fmt == "tucker":
-            facs = ws.pad_factors(init_tucker_factors(st.shape, rank, seed=0, device=torch.device("cuda")))
+            init = init_tucker_factors(st.shape, rank, seed=0, device=torch.device("cuda"))
             args = (norm_x_sq,)
         else:
             if fmt == "cp":
@@ -995,11 +1099,24 @@ def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
             else:
                 init = [core_to_matrix(c) for c in
                         init_tt_cores(st.shape, rank, seed=0, device=torch.device("cuda"))]
-            facs = ws.pad_factors(init)
             args = (torch.from_numpy(st.indices).cuda(), torch.from_numpy(st.values).cuda(), norm_x_sq)
+        facs = ws.pad_factors(init)
+        # The tuned sweep in turns with one at the default geometry, from
+        # the same factors; it may not be slower than the default beyond
+        # the default's own spread (these turns and phase d, f or h).
+        base = make_planned[fmt](st, rank, device="cuda")
+        base_facs = base.pad_factors(init)
         facs, _, _ = ws.sweep(facs, *args, first=True)
-        sweep_ms = cuda_ms(lambda: ws.sweep(facs, *args), SWEEP_REPS)
-        del ws, facs, args
+        base_facs, _, _ = base.sweep(base_facs, *args, first=True)
+        turns = {"default": [], "tuned": []}
+        for turn in SWEEP_TURNS:
+            turns[turn].append(cuda_ms(lambda: ws.sweep(facs, *args), SWEEP_REPS) if turn == "tuned"
+                               else cuda_ms(lambda: base.sweep(base_facs, *args), SWEEP_REPS))
+        sweep_ms = min(turns["tuned"])
+        defaults = turns["default"] + [main_sweep_ms[fmt]]
+        check(sweep_ms <= max(defaults),
+              f"auto-tuned {fmt} sweep {turns['tuned']} ms against the default's {defaults}")
+        del ws, base, facs, base_facs, args, init
         torch.cuda.empty_cache()
 
         torch.cuda.reset_peak_memory_stats()
@@ -1016,14 +1133,24 @@ def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
         check(len(fits) == ITERS and all(math.isfinite(f) for f in fits) and gap <= TOL_TUNED_FIT,
               f"auto-tuned {fmt} fits {fits} against phase {phase}'s {main_fits[fmt]}")
         tuned.append({"format": fmt, "ranks": rank, "chosen": chosen, "plan_build_s": plan_build_s,
-                      "sweep_ms": sweep_ms, "decompose_s": decompose_s,
+                      "sweep_ms": sweep_ms, "turns": list(SWEEP_TURNS),
+                      "tuned_sweep_ms": turns["tuned"], "default_sweep_ms": turns["default"],
+                      f"phase_{phase}_sweep_ms": main_sweep_ms[fmt],
+                      "default_spread_ms": max(defaults) - min(defaults),
+                      "tuned_over_default": sweep_ms / min(turns["default"]),
+                      "decompose_s": decompose_s,
                       "peak_device_bytes": torch.cuda.max_memory_allocated(), "launches": launches,
                       "fits": fits, f"phase_{phase}_fits": main_fits[fmt], "max_fit_gap": gap})
         del state
         torch.cuda.empty_cache()
 
     # A warm autotune cache: the second auto_tune="cached" call evaluates
-    # no configuration and takes the first one's picks.
+    # no configuration and takes the first one's picks, which the cache
+    # holds as the search's own; its fit is the first's up to the kernel's
+    # float32 sum order (ranges' partial sums land in a varying order).
+    def missed():
+        raise RuntimeError("chip_smoke check failed: the warm autotune cache missed")
+
     with tempfile.TemporaryDirectory() as cache_dir:
         before = os.environ.get("REPRO_TORCH_AUTOTUNE_DIR")
         os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = cache_dir
@@ -1040,14 +1167,20 @@ def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
                                                  if k.startswith("autotune_cache.hits"))})
                 del state
                 torch.cuda.empty_cache()
+            held = [cached_config("mttkrp", st.fingerprint(), m, RANK, spec, missed)
+                    for m in range(st.nmodes)]
         finally:
             if before is None:
                 del os.environ["REPRO_TORCH_AUTOTUNE_DIR"]
             else:
                 os.environ["REPRO_TORCH_AUTOTUNE_DIR"] = before
     check(cached[0]["configs_evaluated"] == 256 * st.nmodes and cached[1]["configs_evaluated"] == 0
-          and cached[1]["cache_hits"] == st.nmodes and cached[1]["fit"] == cached[0]["fit"],
-          f"autotune cache: {cached}")
+          and cached[1]["cache_hits"] == st.nmodes
+          and held == [picks["mttkrp", m][0] for m in range(st.nmodes)]
+          and abs(cached[1]["fit"] - cached[0]["fit"]) <= TOL_FIT,
+          f"autotune cache: {cached}, held {[cfg_label(c) for c in held]}")
+    cached.append({"held": [cfg_label(c) for c in held],
+                   "fit_gap": abs(cached[1]["fit"] - cached[0]["fit"])})
 
     # Calibration: the card's rates, and the block-sweep fit of the PMS's.
     bw = measure_hbm_bw()
@@ -1061,7 +1194,7 @@ def pms_phase(st, main_fits: dict, gen: torch.Generator) -> None:
              "datasheet_hbm_bw": spec.hbm_bw, "datasheet_peak_flops_f32": spec.peak_flops_f32,
              "fitted_hbm_bw": fitted.hbm_bw, "fitted_peak_flops_f32": fitted.peak_flops_f32,
              "samples": [{"cfg": s.label, "sweep_ms": s.measured_s * 1e3, "bytes": s.mem_bytes,
-                          "flops": s.flops,
+                          "l2_bytes": s.l2_bytes, "flops": s.flops,
                           "predicted_ms_datasheet": predicted_seconds(s.per_mode, spec) * 1e3,
                           "predicted_ms_fitted": predicted_seconds(s.per_mode, fitted) * 1e3}
                          for s in samples]}
@@ -1449,6 +1582,273 @@ def wide_phase(st, gen: torch.Generator, entries: dict, main_sweep_ms: dict, bef
           "before_wide": {k: str(src.relative_to(ROOT)) for k, src in BEFORE_WIDE.items()},
           "before_wide_turns": before, "tol_full": TOL_FULL, "trace_sweep_tol": TRACE_SWEEP_TOL,
           "trace_overhead_max": TRACE_OVERHEAD, "before_wide_slowdown_max": BEFORE_WIDE_SLOWDOWN})
+
+
+_KILLED = """
+import sys
+sys.path.insert(0, {src!r})
+import numpy as np
+from repro_torch.api import decompose
+from repro_torch.core.coo import SparseTensor
+from repro_torch.testing import faults
+from repro_torch.{module} import {make}
+st = SparseTensor(np.load({idx!r}), np.load({val!r}), {shape!r})
+ws = {make}(st, {rank!r}, device="cuda")
+faults.kill_at(ws, at_iter={at}, exit_code={code})
+decompose(st, {rank!r}, format={fmt!r}, iters={iters}, seed=0, planned=ws, checkpoint_path={ckpt!r},
+          **{kw!r})
+"""
+_BUILDER_MODULE = {"cp": "kernels.ops", "tucker": "tucker.hooi", "tt": "tt.als"}
+
+
+def steady_ms(label: str) -> list[float]:
+    """The drive's steady sweeps (all but the first), ms, from its
+    `drive.iter_seconds` series since the last metrics reset."""
+    return [x * 1e3 for x in metrics.histogram("drive.iter_seconds", label=label).sample[1:]]
+
+
+def sync_loop_ms(st, ws) -> list[float]:
+    """The drive's loop without the drive: ITERS sweeps from decompose's
+    initial factors (seed 0), each followed by the fit's transfer to the
+    host, which every drive pays; the steady iterations' ms by the host
+    clock, as `drive.iter_seconds` times them."""
+    idx, val = to_device(st, ws.device)
+    norm_x_sq = torch.tensor(float((st.values.astype("float64") ** 2).sum()), device=ws.device)
+    facs = ws.pad_factors(_initial_factors(st, RANK, None, 0, ws.device))
+    out = []
+    for it in range(ITERS):
+        t0 = time.perf_counter()
+        facs, _, fit = ws.sweep(facs, idx, val, norm_x_sq, first=it == 0)
+        float(fit)
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out[1:]
+
+
+def guard_turns(st, ws, main_sweep_ms: float) -> dict:
+    """CP decompose on one workspace under each of GUARD_SETTINGS, and the
+    bare sweep-and-sync loop (`sync_loop_ms`), in turns (GUARD_TURNS); the
+    median steady sweep of each.  The unguarded drive is held to the bare
+    loop, and to phase d's back-to-back sweeps, which pay no sync."""
+    sweeps = {k: [] for k in (*GUARD_SETTINGS, "sync")}
+    for turn in GUARD_TURNS:
+        if turn == "sync":
+            sweeps[turn] += sync_loop_ms(st, ws)
+            continue
+        metrics.reset()
+        decompose(st, RANK, iters=ITERS, seed=0, planned=ws, guards=GUARD_SETTINGS[turn])
+        sweeps[turn] += steady_ms("cp_als")
+    ms = {k: statistics.median(v) for k, v in sweeps.items()}
+    over_sync = ms["off"] / ms["sync"] - 1.0
+    gap = ms["off"] / main_sweep_ms - 1.0
+    check(abs(over_sync) <= UNGUARDED_SWEEP_TOL and abs(gap) <= DRIVE_SYNC_TOL,
+          f"unguarded drive sweep {ms['off']} ms against the bare loop's {ms['sync']} ms and "
+          f"phase d's {main_sweep_ms} ms")
+    return {"turns": list(GUARD_TURNS), "sweep_ms": ms, "phase_d_sweep_ms": main_sweep_ms,
+            "unguarded_vs_bare_loop": over_sync, "unguarded_vs_phase_d": gap,
+            "over_unguarded": {k: v / ms["off"] for k, v in ms.items()}}
+
+
+def recovery(st, fmt: str, ws, clean_fit: float) -> list[dict]:
+    """A NaN injected after iteration 1 into `ws` under "restart" and
+    "fallback": the guard's events, the kernel's launches (none after a
+    fallback), the fallback sweeps' ms, the final fit against the clean
+    run's."""
+    rank, kw, label, kernel, _ = TRACED[fmt]
+    out = []
+    for policy in ("restart", "fallback"):
+        faults.inject_nan_factor(ws, at_iter=1)
+        metrics.reset()
+        reset_launches()
+        with obs_trace.tracing(True) as tr:
+            state = decompose(st, rank, format=fmt, iters=ITERS, seed=0, planned=ws,
+                              guards=GuardConfig(policy), **kw)
+        del ws._sweep_call  # the injector's wrapper
+        events = [e["name"] for e in tr.events() if e["name"].startswith(("guard_", "nonfinite"))]
+        before_switch = 3 * st.nmodes  # iterations 0-2: the guard fires on iteration 2's fit
+        after = kernel.launches - before_switch
+        gap = abs(state.fit_history[-1] - clean_fit)
+        check(len(state.fit_history) == ITERS and gap <= TOL_RECOVERED,
+              f"{fmt} {policy}: fits {state.fit_history}, clean final fit {clean_fit}")
+        check(events == [f"guard_{policy}"], f"{fmt} {policy}: events {events}")
+        check(after == (ITERS * st.nmodes if policy == "restart" else 0),
+              f"{fmt} {policy}: {after} kernel launches after the guard fired")
+        sweeps = [x * 1e3 for x in metrics.histogram("drive.iter_seconds", label=label).sample]
+        out.append({"format": fmt, "policy": policy, "events": events,
+                    "launches_after_switch": after, "fits": state.fit_history,
+                    "final_fit_gap": gap, "sweep_ms": sweeps,
+                    **({"fallback_sweep_ms": statistics.median(sweeps[3:])}
+                       if policy == "fallback" else {})})
+        del state
+    return out
+
+
+def killed_and_resumed(st, main_fits: dict, clean_fits: dict) -> list[dict]:
+    """CP and TT at NELL-2 size in subprocesses (at once), killed before
+    iteration KILL_AT with checkpoints every iteration; then resumed here:
+    the restored padded factors and fits against the saved ones, bit for
+    bit, the later fits against phases d and h, and the ms per
+    checkpoint_save."""
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        idx, val = Path(tmp) / "indices.npy", Path(tmp) / "values.npy"
+        np.save(idx, st.indices)
+        np.save(val, st.values)
+        procs = {}
+        for fmt in ("cp", "tt"):
+            rank, kw, _, _, build_ws = TRACED[fmt]
+            code = _KILLED.format(src=str(ROOT / "src"), module=_BUILDER_MODULE[fmt],
+                                  make=build_ws.__name__, idx=str(idx), val=str(val),
+                                  shape=tuple(st.shape), rank=rank, at=KILL_AT, code=KILL_CODE,
+                                  fmt=fmt, iters=ITERS, ckpt=str(Path(tmp) / fmt), kw=kw)
+            procs[fmt] = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+        for fmt, proc in procs.items():
+            log, _ = proc.communicate(timeout=300)
+            check(proc.returncode == KILL_CODE,
+                  f"killed {fmt}: exit {proc.returncode}, expected {KILL_CODE}:\n{log[-3000:]}")
+        for fmt in ("cp", "tt"):
+            rank, kw, label, _, build_ws = TRACED[fmt]
+            ckpt = str(Path(tmp) / fmt)
+            step, saved = CheckpointManager(ckpt).restore(device="cuda")
+            check(step == KILL_AT - 1, f"killed {fmt}: latest checkpoint step {step}")
+            ws = build_ws(st, rank, device="cuda")
+            seen = {}
+            inner = ws._sweep_call
+
+            def first_input(facs, *args, it):
+                seen.setdefault("facs", tuple(f.clone() for f in facs))
+                return inner(facs, *args, it=it)
+
+            ws._sweep_call = first_input
+            with obs_trace.tracing(True) as tr:
+                state = decompose(st, rank, format=fmt, iters=ITERS, seed=0, planned=ws,
+                                  checkpoint_path=ckpt, **kw)
+            same = all(torch.equal(a, b) for a, b in zip(seen["facs"], saved["facs"]))
+            fits = state.fit_history
+            check(same and fits[:KILL_AT] == saved["fits"].tolist() and len(fits) == ITERS,
+                  f"resumed {fmt}: restored factors equal {same}, fits {fits} against saved "
+                  f"{saved['fits'].tolist()}")
+            check(len(tr.events("checkpoint_resume")) == 1, f"resumed {fmt}: no checkpoint_resume")
+            later = max(abs(a - b) for a, b in zip(fits[KILL_AT:], main_fits[fmt][KILL_AT:]))
+            check(later <= TOL_RECOVERED, f"resumed {fmt}: fits {fits} against {main_fits[fmt]}")
+            out.append({"format": fmt, "exit_code": KILL_CODE, "resumed_from_step": step,
+                        "restored_factors_equal": same, "saved_fits": saved["fits"].tolist(),
+                        "fits": fits, "later_fit_gap": later,
+                        "clean_run_to_run_gap": max(abs(a - b) for a, b in
+                                                    zip(clean_fits[fmt], main_fits[fmt])),
+                        "checkpoint_save_ms": [r["dur"] / 1e3 for r in tr.spans("checkpoint_save")]})
+            del ws, state, saved, seen
+            torch.cuda.empty_cache()
+    return out
+
+
+def admission_cases(st, cp_total: int, main_cp_fits: list[float], gen: torch.Generator) -> dict:
+    """At NELL-2 size, a budget one byte under the CP default's footprint
+    (admitted at blk 128); on LADDER_PRESET, a budget under every rung down
+    to FLOOR_BLK but over the reference footprint (approach 1, no launch)
+    and an impossible one (AdmissionError with every rung); each kernel at
+    LADDER_BLKS on the presets against float64."""
+    reset_launches()
+    with obs_trace.tracing(True) as tr:
+        state = decompose(st, RANK, iters=ITERS, seed=0, hbm_budget=cp_total - 1)
+    rungs = [(e["args"]["outcome"], e["args"].get("blk")) for e in tr.events("admission_rung")]
+    gap = max(abs(a - b) for a, b in zip(state.fit_history, main_cp_fits))
+    check(rungs == [("over_budget", 256), ("pallas", 128)]
+          and mttkrp_blocked.launches == st.nmodes * ITERS and gap <= TOL_TUNED_FIT,
+          f"budget under the CP default: rungs {rungs}, {mttkrp_blocked.launches} launches, "
+          f"fits {state.fit_history} against phase d's {main_cp_fits}")
+    nell2 = {"budget_bytes": cp_total - 1, "rungs": rungs, "fits": state.fit_history,
+             "max_fit_gap_phase_d": gap, "launches": mttkrp_blocked.launches}
+    del state
+    torch.cuda.empty_cache()
+
+    pst = frostt_like(LADDER_PRESET)
+    ref = reference_footprint_bytes(pst, _lane_ranks("cp", RANK, pst.nmodes))
+    reset_launches()
+    with obs_trace.tracing(True) as tr:
+        state = decompose(pst, RANK, iters=3, seed=0, hbm_budget=ref + 1)
+    rungs = [(e["args"]["outcome"], e["args"].get("blk")) for e in tr.events("admission_rung")]
+    want = decompose(pst, RANK, iters=3, seed=0, method="approach1").fit_history
+    top = MemoryControllerConfig().dma.blk
+    ladder = [top >> k for k in range(top.bit_length()) if top >> k >= FLOOR_BLK]
+    check(rungs == [("over_budget", b) for b in ladder] + [("reference", None)]
+          and mttkrp_blocked.launches == 0
+          and max(abs(a - b) for a, b in zip(state.fit_history, want)) <= TOL_FIT,
+          f"{LADDER_PRESET} under every rung: rungs {rungs}, {mttkrp_blocked.launches} launches, "
+          f"fits {state.fit_history} against approach 1's {want}")
+    try:
+        decompose(pst, RANK, iters=3, seed=0, hbm_budget=ref - 1)
+        raise RuntimeError("chip_smoke check failed: an impossible budget was admitted")
+    except AdmissionError as err:
+        impossible = {"budget_bytes": ref - 1, "ladder_blks": [a["blk"] for a in err.ladder],
+                      "reference_bytes": err.reference_bytes}
+    check(impossible["ladder_blks"] == ladder, f"impossible budget: ladder {impossible}")
+
+    blocks = []
+    for preset in ("tiny", LADDER_PRESET):
+        pst = frostt_like(preset)
+        for blk in LADDER_BLKS:
+            cfg = MemoryControllerConfig(dma=DMAEngineConfig(blk=blk))
+            worst = {}
+            ws = make_planned_cp_als(pst, RANK, cfg=cfg, device="cuda")
+            worst["mttkrp"] = max(check_kernel(
+                mttkrp_blocked, mttkrp_blocked_plain, ws.plan_for(m),
+                random_padded(ws.plan_for(m), [rank_padded(RANK)] * (pst.nmodes - 1), gen),
+                tol=TOL_PRESET, what=f"{preset} blk {blk} MTTKRP mode {m}")["max_rel_err"]
+                for m in range(pst.nmodes))
+            ws = make_planned_tucker(pst, PRESET_CORE_RANKS[preset], cfg=cfg, device="cuda")
+            worst["ttmc"] = max(check_kernel(
+                ttmc_blocked, ttmc_blocked_plain, op.plan,
+                random_padded(op.plan, [rank_padded(r) for r in op.in_ranks], gen), op.in_ranks,
+                tol=TOL_PRESET, what=f"{preset} blk {blk} TTMc mode {m}")["max_rel_err"]
+                for m, op in ws.ops.items())
+            ws = make_planned_tt(pst, PRESET_TT_RANKS[preset], cfg=cfg, device="cuda")
+            worst["ttcore"] = max(check_kernel(
+                ttcore_blocked, ttcore_blocked_plain, op.plan,
+                random_padded(op.plan, [rank_padded(a * b) for a, b in op.in_rank_pairs], gen),
+                op.in_rank_pairs, op.n_left,
+                tol=TOL_PRESET, what=f"{preset} blk {blk} TT-core mode {m}")["max_rel_err"]
+                for m, op in ws.ops.items())
+            blocks.append({"preset": preset, "blk": blk, "max_rel_err": worst})
+            del ws
+    return {"nell2_one_byte_under": nell2,
+            "preset_under_every_rung": {"preset": LADDER_PRESET, "budget_bytes": ref + 1,
+                                        "reference_bytes": ref, "rungs": rungs,
+                                        "fits": state.fit_history, "approach1_fits": want},
+            "preset_impossible": impossible, "ladder_blocks": blocks, "tol_preset": TOL_PRESET}
+
+
+def resilience_phase(st, main_fits: dict, main_sweep_ms: float, gen: torch.Generator) -> None:
+    """Phase l: the resilience layer at NELL-2 size (see the module
+    docstring), with `main_fits` the fits of phases d, f and h and
+    `main_sweep_ms` phase d's CP sweep."""
+    phase_t0 = time.perf_counter()
+    clean, peaks, footprint, workspaces = {}, {}, [], {}
+    for fmt, (rank, kw, _, _, _) in TRACED.items():  # nothing else alive on the card
+        torch.cuda.reset_peak_memory_stats()
+        state = decompose(st, rank, format=fmt, iters=ITERS, seed=0, **kw)
+        peaks[fmt] = torch.cuda.max_memory_allocated()
+        clean[fmt] = state.fit_history
+        del state
+        torch.cuda.empty_cache()
+    for fmt, (rank, _, _, _, build_ws) in TRACED.items():
+        workspaces[fmt] = build_ws(st, rank, device="cuda")
+        report = admission_bytes(workspaces[fmt])
+        footprint.append({"format": fmt, **report, "peak_device_bytes": peaks[fmt],
+                          "peak_over_admission": peaks[fmt] / report["total_bytes"],
+                          "fits": clean[fmt], "main_fits": main_fits[fmt],
+                          "run_to_run_gap": max(abs(a - b) for a, b in zip(clean[fmt], main_fits[fmt]))})
+    guards = guard_turns(st, workspaces["cp"], main_sweep_ms)
+    recovered = [r for fmt, ws in workspaces.items() for r in recovery(st, fmt, ws, clean[fmt][-1])]
+    cp_total = footprint[0]["total_bytes"]
+    del workspaces
+    torch.cuda.empty_cache()
+    resumed = killed_and_resumed(st, main_fits, clean)
+    admission = admission_cases(st, cp_total, main_fits["cp"], gen)
+    emit({"phase": "l", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "footprint": footprint, "guards": guards, "recovery": recovered, "resumed": resumed,
+          "admission": admission, "tol_recovered": TOL_RECOVERED,
+          "unguarded_sweep_tol": UNGUARDED_SWEEP_TOL, "drive_sync_tol": DRIVE_SYNC_TOL})
 
 
 if __name__ == "__main__":

@@ -11,6 +11,9 @@
     cp = decompose(st, 16, method="approach2", layout="copies")  # Alg. 4, one copy per mode
     tk = decompose(st, (16, 16, 16), format="tucker", method="reference")  # plain TTMc
     tt = decompose(st, (16, 16), format="tt", method="reference")          # plain TT-core
+    cp = decompose(st, 16, guards=GuardConfig("fallback"))   # NaN -> the reference sweep
+    cp = decompose(st, 16, hbm_budget=2 * 1024**3)     # admission ladder under a budget
+    cp = decompose(st, 16, checkpoint_path="ckpt")     # checkpoints, resumed on the next call
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from .core.coo import SparseTensor
 from .core.cp_als import CPState, cp_als
+from .device import resolve_device
 from .obs import trace as _trace
 from .tt.als import TTState, tt_als
 from .tucker.hooi import TuckerState, tucker_hooi
@@ -30,6 +34,55 @@ _FORMATS = ("cp", "tucker", "tt")
 # The methods each format takes: the planned kernel, or its plain path(s).
 _METHODS = {"cp": ("pallas", "approach1", "approach2"), "tucker": ("pallas", "reference"),
             "tt": ("pallas", "reference")}
+
+
+def _lane_ranks(format: str, r, nmodes: int) -> tuple[int, ...]:
+    """Each mode's factor lane width (`PlannedWorkspace.lane_ranks`) without
+    building a workspace: sizes the ladder's reference rung."""
+    if format == "cp":
+        return (r,) * nmodes
+    if format == "tucker":
+        return tuple(r)
+    bounds = (1,) + tuple(r) + (1,)
+    return tuple(bounds[m] * bounds[m + 1] for m in range(nmodes))
+
+
+def _admitted(st: SparseTensor, r, *, format: str, method: str, planned, hbm_budget: int,
+              auto_tune, cfg, device, verbose: bool):
+    """`hbm_budget=`: admit a given workspace as it is, or run the ladder
+    (`repro_torch.resilience.plan_with_budget`) over workspaces built here,
+    stepping the block size down, then to the reference method, then
+    raising `AdmissionError`.  Returns the workspace (None on the
+    reference rung) and the method to run."""
+    from .resilience import AdmissionError, admit, plan_with_budget, reference_footprint_bytes
+
+    reference_method = "approach1" if format == "cp" else "reference"
+    ref_bytes = reference_footprint_bytes(st, _lane_ranks(format, r, st.nmodes))
+    if method != "pallas":
+        if ref_bytes > hbm_budget:
+            raise AdmissionError(hbm_budget, [], ref_bytes)
+        return planned, method
+    if planned is not None:
+        admit(planned, hbm_budget)
+        return planned, method
+    if auto_tune:
+        raise ValueError("hbm_budget's degradation ladder steps the controller config "
+                         "explicitly; it is incompatible with auto_tune=True")
+    if format == "cp":
+        from .kernels.ops import make_planned_cp_als as build_ws
+    elif format == "tucker":
+        from .tucker.hooi import make_planned_tucker as build_ws
+    else:
+        from .tt.als import make_planned_tt as build_ws
+    ws, decision = plan_with_budget(lambda c: build_ws(st, r, cfg=c, device=device),
+                                    hbm_budget, cfg=cfg, reference_bytes=ref_bytes)
+    if verbose:
+        rungs = ", ".join(f"blk={a['blk']}:{a['total_bytes']:,}B" for a in decision["ladder"])
+        print(f"[admission] {decision['admitted']} admitted under {hbm_budget:,}B "
+              f"(ladder: {rungs or 'none'})")
+    if ws is None:
+        return None, reference_method
+    return ws, method
 
 
 def decompose(
@@ -52,6 +105,10 @@ def decompose(
     device: str | torch.device | None = None,
     verbose: bool = False,
     trace=None,
+    guards=None,
+    hbm_budget: int | None = None,
+    checkpoint_every: int | None = None,
+    checkpoint_path=None,
 ) -> CPState | TuckerState | TTState:
     """Decompose a sparse tensor on the planned memory-controller kernels.
 
@@ -98,6 +155,21 @@ def decompose(
         when the call returns.  The call is a `decompose` span, each plan
         build a `plan_build` span (synchronized on the card), the drive
         loop a `drive` span with one `sweep` span per iteration.
+      guards: a `repro_torch.resilience.GuardConfig`: numerical guards in
+        the planned drive loop (a non-finite fit, a sustained regression,
+        non-finite factors on a cadence) with raise, restart or fallback
+        (to the format's plain reference sweep) recovery.
+      hbm_budget: device-memory admission (method='pallas' and the
+        reference methods): the workspace's footprint (`plan_bytes()`,
+        the padded factors and its kernel's shared memory per CTA) must
+        fit this many bytes.  Over budget, the ladder halves the block
+        size down to `FLOOR_BLK`, then takes the reference method
+        ('approach1' for CP, 'reference' otherwise), and only then raises
+        `AdmissionError`.  A given `planned=` is admitted as it is;
+        auto_tune=True is refused.
+      checkpoint_every / checkpoint_path: save the padded factors and the
+        fits every k iterations; a directory that holds a checkpoint
+        resumes from it.
 
     Returns:
       `CPState(factors, lam, fit_history)`,
@@ -117,19 +189,25 @@ def decompose(
         raise ValueError(f"auto_tune must be False, True or 'cached', got {auto_tune!r}")
     if format == "cp" and not isinstance(rank, int):
         raise ValueError(f"format='cp' takes a single integer rank, got {rank!r}")
-    tune = dict(auto_tune=auto_tune, spec=spec, cfg=cfg)
+    if format == "tt":
+        r = (rank,) * (st.nmodes - 1) if isinstance(rank, int) else tuple(int(x) for x in rank)
+    elif format == "tucker":
+        r = (rank,) * st.nmodes if isinstance(rank, int) else tuple(int(x) for x in rank)
+    else:
+        r = rank
     with _trace.tracing(trace), _trace.span("decompose", format=format, method=method,
                                             shape=list(st.shape), nnz=st.nnz, iters=iters):
+        if hbm_budget is not None:
+            planned, method = _admitted(st, r, format=format, method=method, planned=planned,
+                                        hbm_budget=hbm_budget, auto_tune=auto_tune, cfg=cfg,
+                                        device=resolve_device(device), verbose=verbose)
+        common = dict(iters=iters, method=method, tol=tol, seed=seed, device=device,
+                      planned=planned, verbose=verbose, auto_tune=auto_tune, spec=spec, cfg=cfg,
+                      guards=guards, checkpoint_every=checkpoint_every,
+                      checkpoint_path=checkpoint_path)
         if format == "tt":
-            ranks = (rank,) * (st.nmodes - 1) if isinstance(rank, int) else tuple(int(r) for r in rank)
-            return tt_als(st, ranks, iters=iters, method=method, tol=tol, init=init or "auto",
-                          init_cores=init_factors, seed=seed, device=device, planned=planned,
-                          verbose=verbose, **tune)
+            return tt_als(st, r, init=init or "auto", init_cores=init_factors, **common)
         if format == "tucker":
-            ranks = (rank,) * st.nmodes if isinstance(rank, int) else tuple(int(r) for r in rank)
-            return tucker_hooi(st, ranks, iters=iters, method=method, tol=tol,
-                               init_factors=init_factors, seed=seed, device=device, planned=planned,
-                               verbose=verbose, **tune)
-        return cp_als(st, rank, iters=iters, method=method, layout=layout or "remap", tol=tol,
-                      init_factors=init_factors, seed=seed, device=device, mttkrp_fn=mttkrp_fn,
-                      planned=planned, verbose=verbose, **tune)
+            return tucker_hooi(st, r, init_factors=init_factors, **common)
+        return cp_als(st, r, layout=layout or "remap", init_factors=init_factors,
+                      mttkrp_fn=mttkrp_fn, **common)

@@ -28,7 +28,13 @@ import torch
 
 from ..device import resolve_device
 from .coo import SparseTensor, norm_sq, to_device
-from .loop import check_planned_method, check_workspace, finish_iter, given_factors
+from .loop import (
+    check_drive_extras,
+    check_planned_method,
+    check_workspace,
+    finish_iter,
+    given_factors,
+)
 from .mttkrp import mttkrp
 from .remap import remap_stable
 
@@ -210,6 +216,9 @@ def cp_als(
     spec="default",
     cfg=None,
     verbose: bool = False,
+    guards=None,
+    checkpoint_every: int | None = None,
+    checkpoint_path=None,
 ) -> CPState:
     """Run CP-ALS.
 
@@ -238,6 +247,11 @@ def cp_als(
       PMS's pick per mode for the MTTKRP kernel (auto_tune=True; "cached"
       keeps the winners on disk); `spec` is the PMS's `GPUSpec`,
       "default" or "measured".
+    guards / checkpoint_every / checkpoint_path: the planned drive loop's
+      resilience surface (`repro_torch.resilience`): a `GuardConfig` for
+      divergence detection with raise/restart/fallback recovery, and
+      checkpoints every k iterations with resume from a populated
+      directory.  method='pallas' without `mttkrp_fn` only.
     """
     from ..kernels.ops import PlannedCPALS, make_planned_cp_als  # kernels build on core
 
@@ -246,6 +260,7 @@ def cp_als(
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}: expected 'pallas', 'approach1' or 'approach2'")
     check_planned_method(method, planned)
+    check_drive_extras(method, guards, checkpoint_every, checkpoint_path, mttkrp_fn=mttkrp_fn)
     if planned is not None and mttkrp_fn is not None:
         raise ValueError("mttkrp_fn replaces the planned kernel; the planned workspace would be "
                          "silently ignored (pass planned.mttkrp_fn as mttkrp_fn instead)")
@@ -260,7 +275,8 @@ def cp_als(
             check_workspace(planned, PlannedCPALS, {"shape": st.shape, "rank": rank}, device)
         idx, val = to_device(st, device)
         factors, lam, fits = planned.drive(
-            factors, (idx, val, norm_x_sq), iters=iters, tol=tol, verbose=verbose, label="cp_als")
+            factors, (idx, val, norm_x_sq), iters=iters, tol=tol, verbose=verbose, label="cp_als",
+            guards=guards, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
         return CPState(factors=factors, lam=lam, fit_history=fits)
 
     idx, val = to_device(st, device)

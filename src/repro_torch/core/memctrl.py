@@ -63,6 +63,7 @@ _THREADS = 256
 _WARPS = _THREADS // 32
 _QUAD = 4  # floats in a quad (one float4)
 _MAX_ROWS = 4096  # MTTKRP and TTMc: tile rows per CTA before row parts
+_RANGE_BLOCKS = 64  # most plan blocks a CTA's range takes (blocked.cuh kBlocksPerCta)
 _MAX_TEMPLATE_IN = 4  # input modes the kernels' templates take; more launch the wide path
 _WIDE_CTAS_PER_SM = 2  # the wide kernels' __launch_bounds__
 _MTTKRP_SORT_SLOTS = 2048
@@ -141,6 +142,11 @@ class GPUSpec:
     peak_flops: float = 989e12  # bf16, dense, tensor cores
     peak_flops_f32: float = 67e12  # fp32 outside the tensor cores
     hbm_bw: float = 3.35e12  # bytes/s
+    # L2 read rate, bytes/s.  NVIDIA's H100 data sheet and whitepaper give
+    # none; this is the A100 whitepaper's L2 read rate, 5,120 bytes a clock
+    # ("NVIDIA A100 Tensor Core GPU Architecture", 2020), at the H100 SXM5's
+    # 1,980 MHz boost clock (H100 whitepaper).  Not measured.
+    l2_bw: float = 5120 * 1.98e9
     smem_per_block: int = 232_448
     smem_per_sm: int = 233_472  # 228 KB
     sms: int = 132
@@ -154,7 +160,7 @@ class KernelLaunch:
     per CTA (dynamic and static), the row parts and column slices it runs a
     block range in, whether it fits the spec's shared memory, the share of
     its CTAs per SM that shared memory leaves, and the share of a CTA's
-    threads a step keeps busy."""
+    threads a step keeps busy, and the CTAs an SM holds at once."""
 
     smem_bytes: int
     row_parts: int
@@ -162,6 +168,7 @@ class KernelLaunch:
     fits: bool
     occupancy: float = 1.0
     step_share: float = 1.0
+    ctas_per_sm: int = 1
 
     @property
     def slices(self) -> int:
@@ -169,10 +176,12 @@ class KernelLaunch:
         return self.row_parts * self.col_slices
 
 
-def _occupancy(spec: GPUSpec, smem: int, ctas_per_sm: int) -> float:
-    """CTAs per SM that `smem` bytes each leave, as a share of the
-    `ctas_per_sm` the kernel keeps registers for."""
-    return min(ctas_per_sm, spec.smem_per_sm // (smem + _SMEM_RESERVED)) / ctas_per_sm
+def _resident(spec: GPUSpec, smem: int, ctas_per_sm: int) -> dict:
+    """The CTAs per SM that `smem` bytes each leave, at most the
+    `ctas_per_sm` the kernel keeps registers for, and their share of those:
+    the `ctas_per_sm` and `occupancy` fields of a `KernelLaunch`."""
+    held = min(ctas_per_sm, spec.smem_per_sm // (smem + _SMEM_RESERVED))
+    return {"occupancy": held / ctas_per_sm, "ctas_per_sm": max(1, held)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,12 +214,12 @@ class MemoryControllerConfig:
         if n_in <= _MAX_TEMPLATE_IN:
             smem = fixed + _MTTKRP_SORT_SLOTS * slot + _MTTKRP_STATIC
             return KernelLaunch(smem, parts, slices, smem <= spec.smem_per_block,
-                                _occupancy(spec, smem, 4 if n_in == 2 and nq == 1 else 2))
+                                **_resident(spec, smem, 4 if n_in == 2 and nq == 1 else 2))
         budget = spec.smem_per_block - _MTTKRP_STATIC
         chunk = _staged(budget, fixed, slot, _MTTKRP_SORT_SLOTS)
         smem = fixed + chunk * slot + _MTTKRP_STATIC
         return KernelLaunch(smem, parts, slices, chunk > 0,
-                            _occupancy(spec, smem, _WIDE_CTAS_PER_SM))
+                            **_resident(spec, smem, _WIDE_CTAS_PER_SM))
 
     def ttmc_launch(self, spec: GPUSpec, in_ranks: tuple[int, ...]) -> KernelLaunch:
         """The TTMc kernel at input ranks `in_ranks` (`launch_quads` and
@@ -226,12 +235,12 @@ class MemoryControllerConfig:
         if n_in <= _MAX_TEMPLATE_IN:
             smem = fixed + _TTMC_STATIC
             return KernelLaunch(smem, parts, slices, smem <= spec.smem_per_block,
-                                _occupancy(spec, smem, 4 if nq <= 2 else 2))
+                                **_resident(spec, smem, 4 if nq <= 2 else 2))
         fixed += (n_in - 1) * nq * 32 * 4  # the quads' leading digits
         chunk = _staged(spec.smem_per_block - _TTMC_EDGE_STATIC, fixed, 2, _TTMC_SORT_SLOTS)
         smem = fixed + chunk * 2 + _TTMC_EDGE_STATIC
         return KernelLaunch(smem, parts, slices, chunk > 0,
-                            _occupancy(spec, smem, _WIDE_CTAS_PER_SM))
+                            **_resident(spec, smem, _WIDE_CTAS_PER_SM))
 
     def tt_launch(self, spec: GPUSpec, in_pairs: tuple[tuple[int, int], ...],
                   n_left: int) -> KernelLaunch:
@@ -288,8 +297,8 @@ class MemoryControllerConfig:
         chunk = min((budget - used) // slot, _TT_CHUNK) if fits else 0
         smem = dyn(parts, chunk) + static
         return KernelLaunch(smem, parts, _ceil_div(ncols, slice_), fits,
-                            _occupancy(spec, smem, _WIDE_CTAS_PER_SM if wide else 4),
-                            min(chunk, self.dma.blk) / _THREADS)
+                            step_share=min(chunk, self.dma.blk) / _THREADS,
+                            **_resident(spec, smem, _WIDE_CTAS_PER_SM if wide else 4))
 
 
 # ---------------------------------------------------------------------------

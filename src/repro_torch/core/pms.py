@@ -6,19 +6,24 @@ one output mode's kernel with a roofline and searches the controller's
 parameter space under the kernel's shared-memory limit, so a plan is built
 only for the configuration that wins.
 
-Model (per output mode):
-  t_stream  = nblocks * blk * (value + (N-1+1) index bytes) / hbm_bw
+Model (per output mode; S the plan's slots, nnz its real ones):
+  t_stream  = S * (value + (N-1+1) index bytes) / hbm_bw
   t_reread  = (row parts * column slices - 1) * t_stream
-  t_factor  = sum_n fills[n] * tile_n * lanes_n * value bytes / hbm_bw
+  t_factor  = sum_n in_rows_n * lanes_n * value bytes / hbm_bw
   t_out     = fills["A"] * tile_i * out_lanes * value bytes / hbm_bw
-  t_mem     = t_stream + t_reread + t_factor + t_out
+  t_mem     = t_stream + t_reread + t_factor + t_out        (HBM)
+  t_gather  = nnz * sum_n sectors(lanes_n) / l2_bw
+  t_flush   = row runs * sectors(out_lanes) / l2_bw
+  t_l2      = t_gather + t_flush                             (L2)
   t_compute = nnz * flops per non-zero / peak_flops_f32
-  t_total   = max(t_mem, t_compute) / (occupancy * step share)
+  t_total   = max(t_mem + t_l2, t_compute)
+              / (occupancy * step share * wave share)
 
-What depends only on the layout is the reference's, to the bit: the plan's
-`nblocks`, tile fills and padding, the balls-in-bins occupancy estimate
+with sectors(w) the 32-byte sectors of w float32 lanes.  What depends only
+on the layout is the reference's, to the bit: the plan's `nblocks`, tile
+fills and padding, the balls-in-bins occupancy estimate
 (`_analytic_layout`), the stream term, the candidate grid and its order.
-Five things differ on purpose, because the kernels differ:
+Seven things differ on purpose, because the kernels differ:
 
   1. Lane padding.  A factor row is `rank_padded(R)` lanes, R rounded up to
      a multiple of 4 (kernels/mttkrp.py), and a TTMc output row
@@ -55,6 +60,30 @@ Five things differ on purpose, because the kernels differ:
      At NELL-2 size the TT-core kernel's first mode took 17-23 ms at tile
      1,024 (2 CTAs per SM) against 12.9 ms at 256 (4), and both TT modes
      timed took 23-24 ms at blk 128 against 17 ms at blk 256.
+  6. What the kernels read and write.  The reference's kernel fetches a
+     whole input factor tile into VMEM each time a block changes tile
+     (fills * tile * lanes bytes), so large tiles save fetches.  The CUDA
+     kernels fetch no tile: every real slot gathers its N-1 input rows
+     through L2, in 32-byte sectors (`t_gather`, the same at every
+     geometry), each input factor comes from HBM once (`t_factor`), and
+     the rows summed in registers reach the output with atomics once per
+     row and sort unit (`t_flush`): a 2,048-slot chunk for MTTKRP, an
+     8,192-slot chunk for TTMc, a block range for TT-core.  Row runs are
+     the balls-in-bins count of a unit's real slots over a tile's rows,
+     units * tile_i * (1 - exp(-real slots a unit / tile_i)), on the
+     plan's padding (exact) or the occupancy model's (analytic).  The
+     HBM and L2 terms add: a CTA reads its stream, then gathers its rows.
+     The fill-priced term ranked TTMc and TT-core mode 0 backwards on the
+     card (Spearman -0.77 each, `chip_smoke.py` phase i on an H100): it
+     rewarded tiles the kernels get nothing from.
+  7. The grid's last wave.  `launch_ranges` (blocked.cuh) runs one CTA per
+     (block range of at most 64 blocks, part, slice), at least a wave of
+     them; with W waves of the SMs' resident CTAs the last is half idle on
+     average, so t_total is divided by W / max(1, W + 1/2) (`wave_share`).
+     Blocks of 1,024 slots leave 2.3 waves at NELL-2 size, where the
+     MTTKRP kernel took 2.36 ms against 1.95 at blk 256 on the same
+     number of slots (`scripts/torch_pms_probe.py`, "NVIDIA H100 80GB HBM3,
+     700.00 W").
 
 The sharded half (`predict_sharded`, `search_sharded`) waits for the
 distribution slice.
@@ -74,6 +103,9 @@ from ..kernels.ttm import cols_padded
 from .coo import SparseTensor
 from .hypergraph import HypergraphStats, stats as hg_stats
 from .memctrl import (
+    _MTTKRP_SORT_SLOTS,
+    _RANGE_BLOCKS,
+    _TTMC_SORT_SLOTS,
     CacheEngineConfig,
     DMAEngineConfig,
     GPUSpec,
@@ -81,6 +113,8 @@ from .memctrl import (
     MemoryControllerConfig,
 )
 from .remap import BlockPlan, plan_blocks
+
+_SECTOR = 32  # bytes an L2 sector holds: the unit of a gather
 
 __all__ = [
     "PMSEstimate",
@@ -112,18 +146,28 @@ class PMSEstimate:
     t_reread: float = 0.0
     occupancy: float = 1.0
     step_share: float = 1.0
+    t_gather: float = 0.0
+    t_flush: float = 0.0
+    wave_share: float = 1.0
 
     @property
     def t_mem(self) -> float:
+        """The HBM terms: bytes over `hbm_bw`."""
         return self.t_stream + self.t_reread + self.t_factor + self.t_out
 
     @property
+    def t_l2(self) -> float:
+        """The L2 terms: bytes over `l2_bw`."""
+        return self.t_gather + self.t_flush
+
+    @property
     def t_total(self) -> float:
-        return max(self.t_mem, self.t_compute) / (self.occupancy * self.step_share)
+        return (max(self.t_mem + self.t_l2, self.t_compute)
+                / (self.occupancy * self.step_share * self.wave_share))
 
     @property
     def bottleneck(self) -> str:
-        return "memory" if self.t_mem >= self.t_compute else "compute"
+        return "memory" if self.t_mem + self.t_l2 >= self.t_compute else "compute"
 
 
 def resolve_spec(spec) -> GPUSpec:
@@ -150,19 +194,22 @@ def _count_configs(kernel: str, n: int) -> None:
 @dataclasses.dataclass(frozen=True)
 class _KernelModel:
     """One kernel's width-dependent terms: lanes of each input factor and of
-    the output row, flops per real non-zero, and its launch at a config."""
+    the output row, flops per real non-zero, its launch at a config, and
+    the slots of its sort unit, whose rows reach the output once each
+    (None: a block range)."""
 
     in_lanes: tuple[int, ...]
     out_lanes: int
     flops_per_nnz: int
     launch: Callable[[MemoryControllerConfig, GPUSpec], KernelLaunch]
+    flush_slots: int | None = None
 
 
 def _mttkrp_model(nmodes: int, rank: int) -> _KernelModel:
     rp = rank_padded(rank)
     n_in = nmodes - 1
     return _KernelModel((rp,) * n_in, rp, nmodes * rp,
-                        lambda cfg, spec: cfg.mttkrp_launch(spec, rp, n_in))
+                        lambda cfg, spec: cfg.mttkrp_launch(spec, rp, n_in), _MTTKRP_SORT_SLOTS)
 
 
 def _ttmc_in_ranks(core_ranks: Sequence[int], mode: int) -> tuple[int, ...]:
@@ -173,7 +220,8 @@ def _ttmc_model(in_ranks: tuple[int, ...]) -> _KernelModel:
     ncols = math.prod(in_ranks)
     chain = sum(math.prod(in_ranks[: k + 1]) for k in range(len(in_ranks)))
     return _KernelModel(tuple(rank_padded(r) for r in in_ranks), cols_padded(ncols),
-                        chain + ncols, lambda cfg, spec: cfg.ttmc_launch(spec, in_ranks))
+                        chain + ncols, lambda cfg, spec: cfg.ttmc_launch(spec, in_ranks),
+                        _TTMC_SORT_SLOTS)
 
 
 def _tt_pairs(
@@ -197,6 +245,11 @@ def _tt_model(in_pairs: tuple[tuple[int, int], ...], out_pair: tuple[int, int],
                         lambda cfg, spec: cfg.tt_launch(spec, in_pairs, n_left))
 
 
+def _sectors(lanes: int, value_bytes: int) -> int:
+    """Bytes of the 32-byte sectors that hold `lanes` values."""
+    return -(-lanes * value_bytes // _SECTOR) * _SECTOR
+
+
 def _estimate(
     model: _KernelModel,
     cfg: MemoryControllerConfig,
@@ -208,18 +261,27 @@ def _estimate(
     nnz: int,
     tile_i: int,
     in_tiles: tuple[int, ...],
+    in_rows: tuple[int, ...],
     blk: int,
 ) -> PMSEstimate:
     """The roofline terms at a layout (a built plan's, or the occupancy
     model's) and the kernel's launch at `cfg`."""
     r = cfg.remapper
     n_in = len(in_tiles)
-    stream_bytes = nblocks * blk * (r.value_bytes + (n_in + 1) * r.index_bytes)
-    factor_bytes = sum(
-        fills[chr(ord("B") + n)] * t * w for n, (t, w) in enumerate(zip(in_tiles, model.in_lanes))
-    ) * r.value_bytes
+    slots = nblocks * blk
+    stream_bytes = slots * (r.value_bytes + (n_in + 1) * r.index_bytes)
+    factor_bytes = sum(rows * w for rows, w in zip(in_rows, model.in_lanes)) * r.value_bytes
     out_bytes = fills["A"] * tile_i * model.out_lanes * r.value_bytes
+    gather_bytes = nnz * sum(_sectors(w, r.value_bytes) for w in model.in_lanes)
+    # Row runs: each sort unit's real slots over its tile's rows.
+    unit = min(model.flush_slots or _RANGE_BLOCKS * blk, _RANGE_BLOCKS * blk, slots)
+    real = unit * (1.0 - padding)
+    runs = (nnz / real) * tile_i * -math.expm1(-real / tile_i) if real > 0 else 0.0
+    flush_bytes = runs * _sectors(model.out_lanes, r.value_bytes)
     launch = model.launch(cfg, spec)
+    held = spec.sms * launch.ctas_per_sm
+    ranges = min(max(held // launch.slices, -(-nblocks // _RANGE_BLOCKS)), nblocks)
+    waves = ranges * launch.slices / held
     return PMSEstimate(
         cfg=cfg,
         t_stream=stream_bytes / spec.hbm_bw,
@@ -234,6 +296,9 @@ def _estimate(
         col_slices=launch.col_slices,
         occupancy=launch.occupancy,
         step_share=launch.step_share,
+        t_gather=gather_bytes / spec.l2_bw,
+        t_flush=flush_bytes / spec.l2_bw,
+        wave_share=waves / max(1.0, waves + 0.5),
     )
 
 
@@ -242,7 +307,7 @@ def _from_plan(model: _KernelModel, plan: BlockPlan, cfg: MemoryControllerConfig
     """Exact terms: the plan's own geometry, fills and padding."""
     return _estimate(model, cfg, resolve_spec(spec), nblocks=plan.nblocks, fills=plan.tile_fills(),
                      padding=plan.padding_fraction(), nnz=plan.nnz, tile_i=plan.tile_i,
-                     in_tiles=plan.in_tiles, blk=plan.blk)
+                     in_tiles=plan.in_tiles, in_rows=plan.in_rows, blk=plan.blk)
 
 
 def _expected_occupied(bins: float, balls: float) -> float:
@@ -280,9 +345,12 @@ def _analytic(model: _KernelModel, hs: HypergraphStats, mode: int,
               cfg: MemoryControllerConfig, spec) -> PMSEstimate:
     """Terms from the occupancy model: no plan is built."""
     nblocks, fills, padding = _analytic_layout(hs, mode, cfg)
+    in_tiles = cfg.cache.input_tiles(hs.nmodes - 1)
+    in_modes = [m for m in range(hs.nmodes) if m != mode]
+    in_rows = tuple(-(-hs.shape[m] // t) * t for m, t in zip(in_modes, in_tiles))
     return _estimate(model, cfg, resolve_spec(spec), nblocks=nblocks, fills=fills,
                      padding=padding, nnz=hs.nnz, tile_i=cfg.cache.tile_i,
-                     in_tiles=cfg.cache.input_tiles(hs.nmodes - 1), blk=cfg.dma.blk)
+                     in_tiles=in_tiles, in_rows=in_rows, blk=cfg.dma.blk)
 
 
 def predict_from_plan(plan: BlockPlan, rank: int, cfg: MemoryControllerConfig,

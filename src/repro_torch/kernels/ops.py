@@ -28,6 +28,7 @@ from ..core.coo import SparseTensor, to_device
 from ..core.cp_als import _update_mode, fit_value
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.mttkrp import mttkrp as mttkrp_stream
+from ..core.mttkrp import mttkrp_approach1
 from ..core.pms import predict_from_plan
 from ..core.pms import resolve_spec as pms_resolve_spec
 from ..core.pms import search as pms_search
@@ -363,6 +364,27 @@ class PlannedCPALS(PlannedWorkspace):
         true = [f[:s, :rank] for f, s in zip(facs, shape)]
         fit = fit_value(idx, val, true, lam, norm_x_sq)
         return facs, lam, fit
+
+    def _build_fallback_sweep(self):
+        """The "fallback" guard policy's target: the same ALS iteration with
+        each mode's kernel replaced by approach 1 on the raw stream (which
+        the drive's arguments carry for the fit), in any order
+        (`sorted_by_mode=False`: a scatter-add); on the same padded
+        factors, written in place.  Launches no kernel."""
+        shape, rank, nmodes = self.shape, self.rank, self.nmodes
+
+        def sweep(facs, idx, val, norm_x_sq, *, it: int):
+            facs = tuple(facs)
+            lam = None
+            for m in range(nmodes):
+                true = [f[:s, :rank] for f, s in zip(facs, shape)]
+                mt = mttkrp_approach1(idx, val, true, m, shape[m], sorted_by_mode=False)
+                true, lam = _update_mode(mt, true, m, it == 0)
+                facs[m][: shape[m], :rank] = true[m]
+            true = [f[:s, :rank] for f, s in zip(facs, shape)]
+            return facs, lam, fit_value(idx, val, true, lam, norm_x_sq)
+
+        return sweep
 
 
 def make_planned_cp_als(

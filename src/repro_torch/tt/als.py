@@ -36,7 +36,13 @@ import numpy as np
 import torch
 
 from ..core.coo import SparseTensor, norm_sq, to_device
-from ..core.loop import check_planned_method, check_workspace, finish_iter, given_factors
+from ..core.loop import (
+    check_drive_extras,
+    check_planned_method,
+    check_workspace,
+    finish_iter,
+    given_factors,
+)
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.pms import predict_tt
 from ..device import resolve_device
@@ -284,6 +290,11 @@ class PlannedTT(PlannedWorkspace):
     def _geoms(self) -> dict:
         return {m: op.plan for m, op in self.ops.items()}
 
+    def smem_model_bytes(self, spec: GPUSpec = GPUSpec()) -> int:
+        """Shared memory per CTA of the widest mode's TT-core launch."""
+        return max(op.cfg.tt_launch(spec, op.in_rank_pairs, op.n_left).smem_bytes
+                   for op in self.ops.values())
+
     def pms_estimates(self, spec: GPUSpec | str = GPUSpec()) -> dict:
         """Exact per-mode TT-core PMS estimates from the built plans."""
         return {m: predict_tt(op.plan, self.tt_ranks, op.cfg, spec) for m, op in self.ops.items()}
@@ -312,6 +323,27 @@ class PlannedTT(PlannedWorkspace):
             cores[m] = matrix_to_core(facs[m][: shape[m], : lr[m]], *pairs[m])
             p = _p_next(p, cores[m])
         return facs, None, _fit_from(norm_x_sq, p[0, 0], tt_inner(idx, val, cores))
+
+    def _build_fallback_sweep(self):
+        """The "fallback" guard policy's target: the same left-to-right sweep
+        with each mode's kernel replaced by `ttcore_ref` on the raw stream
+        (which the drive's arguments carry for the fit), on the same padded
+        interface matrices, written in place.  Launches no kernel."""
+        shape, pairs, lr, nmodes = self.shape, self.bond_pairs, self.lane_ranks, self.nmodes
+
+        def sweep(facs, idx, val, norm_x_sq, *, it: int):
+            facs = tuple(facs)
+            cores = [matrix_to_core(f[:s, :w], *pr) for f, s, w, pr in zip(facs, shape, lr, pairs)]
+            qs = _q_suffix(cores)
+            p = torch.ones((1, 1), dtype=torch.float32, device=facs[0].device)
+            for m in range(nmodes):
+                b = ttcore_ref(idx, val, cores, m, shape[m])
+                facs[m][: shape[m], : lr[m]] = _solve_core(torch.kron(p, qs[m]), b)
+                cores[m] = matrix_to_core(facs[m][: shape[m], : lr[m]], *pairs[m])
+                p = _p_next(p, cores[m])
+            return facs, None, _fit_from(norm_x_sq, p[0, 0], tt_inner(idx, val, cores))
+
+        return sweep
 
 
 def make_planned_tt(
@@ -367,6 +399,9 @@ def tt_als(
     cfg: MemoryControllerConfig | None = None,
     device: str | torch.device | None = None,
     verbose: bool = False,
+    guards=None,
+    checkpoint_every: int | None = None,
+    checkpoint_path=None,
 ) -> TTState:
     """Run sparse tensor-train ALS.
 
@@ -388,12 +423,16 @@ def tt_als(
       not given: `cfg` for every mode, or the PMS's pick per mode for the
       TT-core kernel (auto_tune=True; "cached" keeps the winners on disk).
     device: CUDA unless the caller passes one (raises if no GPU is present).
+    guards / checkpoint_every / checkpoint_path: the planned drive loop's
+      resilience surface (`repro_torch.resilience`; see `cp_als`).
+      method='pallas' only.
     """
     tr = _validated_tt_ranks(st, tt_ranks)
     if method not in ("pallas", "reference"):
         raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
     device = resolve_device(device)
     check_planned_method(method, planned)
+    check_drive_extras(method, guards, checkpoint_every, checkpoint_path)
     if planned is not None:
         check_workspace(planned, PlannedTT, {"shape": st.shape, "tt_ranks": tr}, device)
     cores = _initial_cores(st, tr, init, init_cores, seed, device)
@@ -408,7 +447,8 @@ def tt_als(
     if method == "pallas":
         mats, _, fits = planned.drive(
             [core_to_matrix(c) for c in cores], (idx, val, norm_x_sq), iters=iters, tol=tol,
-            verbose=verbose, label="tt_als")
+            verbose=verbose, label="tt_als",
+            guards=guards, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
         return TTState(cores=[matrix_to_core(w, *pr).contiguous() for w, pr in zip(mats, pairs)],
                        fit_history=fits)
 

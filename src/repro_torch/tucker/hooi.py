@@ -29,14 +29,20 @@ from typing import Sequence
 import torch
 
 from ..core.coo import SparseTensor, norm_sq, to_device
-from ..core.loop import check_planned_method, check_workspace, finish_iter, given_factors
+from ..core.loop import (
+    check_drive_extras,
+    check_planned_method,
+    check_workspace,
+    finish_iter,
+    given_factors,
+)
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.pms import predict_ttmc
 from ..device import resolve_device
 from ..kernels.ops import PlannedTTMC, make_planned_ttmc
 from ..kernels.ref import ttmc_ref
 from ..kernels.ttm import ttmc_blocked
-from ..kernels.workspace import PlannedWorkspace
+from ..kernels.workspace import PlannedWorkspace, plan_stream
 
 __all__ = [
     "TuckerState",
@@ -91,13 +97,21 @@ def _factor_from_unfolding(y: torch.Tensor, r: int) -> torch.Tensor:
     """Top-r left singular vectors of the unfolding y (I_n, P) via `eigh` of
     the (P, P) Gram.  Columns whose singular value falls below 1e-7 of the
     largest are zeroed rather than divided by ~0; HOOI only uses the
-    spanned subspace."""
-    w, v = torch.linalg.eigh(y.T @ y)  # ascending eigenvalues
-    top_v = v.flip(1)[:, :r]
+    spanned subspace.
+
+    A non-finite unfolding gives a NaN factor, as the reference's `eigh`
+    does, where torch's would raise: `eigh` sees the identity in its place
+    (no host sync decides it), and the result is replaced by NaN, so the
+    fit turns NaN and the drive loop's guards see it."""
+    gram = y.T @ y
+    finite = torch.isfinite(gram).all()
+    w, v = torch.linalg.eigh(torch.where(finite, gram, torch.eye(gram.shape[0], dtype=gram.dtype,
+                                                                   device=gram.device)))
+    top_v = v.flip(1)[:, :r]  # eigenvalues ascend
     sigma = torch.sqrt(torch.clamp(w.flip(0)[:r], min=0.0))
     thresh = torch.clamp(sigma[0], min=1e-30) * 1e-7
     inv = torch.where(sigma > thresh, 1.0 / torch.maximum(sigma, thresh), torch.zeros_like(sigma))
-    return y @ (top_v * inv[None, :])
+    return torch.where(finite, y @ (top_v * inv[None, :]), torch.nan)
 
 
 def _core_from_unfolding(y: torch.Tensor, u: torch.Tensor, mode: int,
@@ -144,6 +158,10 @@ class PlannedTucker(PlannedWorkspace):
     def _geoms(self) -> dict:
         return {m: op.plan for m, op in self.ops.items()}
 
+    def smem_model_bytes(self, spec: GPUSpec = GPUSpec()) -> int:
+        """Shared memory per CTA of the widest mode's TTMc launch."""
+        return max(op.cfg.ttmc_launch(spec, op.in_ranks).smem_bytes for op in self.ops.values())
+
     def pms_estimates(self, spec: GPUSpec | str = GPUSpec()) -> dict:
         """Exact per-mode TTMc PMS estimates from the built plans."""
         return {m: predict_ttmc(op.plan, self.core_ranks, op.cfg, spec) for m, op in self.ops.items()}
@@ -169,6 +187,28 @@ class PlannedTucker(PlannedWorkspace):
         last = self.nmodes - 1
         core = _core_from_unfolding(y, facs[last][: shape[last], : cr[last]], last, cr)
         return facs, core, core_fit_value(core, norm_x_sq)
+
+    def _build_fallback_sweep(self):
+        """The "fallback" guard policy's target: the same HOOI iteration with
+        each mode's kernel replaced by `ttmc_ref`, on the same padded
+        factors, written in place.  The sweep takes no stream, so the
+        stream is mode 0's plan read back as COO (`plan_stream`; padding
+        slots have value 0).  Launches no kernel."""
+        idx, val = plan_stream(self.ops[0].plan)
+        shape, cr, nmodes = self.shape, self.core_ranks, self.nmodes
+
+        def sweep(facs, norm_x_sq, *, it: int):
+            facs = tuple(facs)
+            y = None
+            for m in range(nmodes):
+                true = [f[:s, :r] for f, s, r in zip(facs, shape, cr)]
+                y = ttmc_ref(idx, val, true, m, shape[m])
+                facs[m][: shape[m], : cr[m]] = _factor_from_unfolding(y, cr[m])
+            last = nmodes - 1
+            core = _core_from_unfolding(y, facs[last][: shape[last], : cr[last]], last, cr)
+            return facs, core, core_fit_value(core, norm_x_sq)
+
+        return sweep
 
 
 def make_planned_tucker(
@@ -205,6 +245,9 @@ def tucker_hooi(
     cfg: MemoryControllerConfig | None = None,
     device: str | torch.device | None = None,
     verbose: bool = False,
+    guards=None,
+    checkpoint_every: int | None = None,
+    checkpoint_path=None,
 ) -> TuckerState:
     """Run sparse Tucker HOOI.
 
@@ -222,12 +265,16 @@ def tucker_hooi(
       not given: `cfg` for every mode, or the PMS's pick per mode for the
       TTMc kernel (auto_tune=True; "cached" keeps the winners on disk).
     device: CUDA unless the caller passes one (raises if no GPU is present).
+    guards / checkpoint_every / checkpoint_path: the planned drive loop's
+      resilience surface (`repro_torch.resilience`; see `cp_als`).
+      method='pallas' only.
     """
     cr = _validated_core_ranks(st, core_ranks)
     if method not in ("pallas", "reference"):
         raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
     device = resolve_device(device)
     check_planned_method(method, planned)
+    check_drive_extras(method, guards, checkpoint_every, checkpoint_path)
     if planned is not None:
         check_workspace(planned, PlannedTucker, {"shape": st.shape, "core_ranks": cr}, device)
     if init_factors is None:
@@ -241,7 +288,8 @@ def tucker_hooi(
             planned = make_planned_tucker(st, cr, cfg=cfg, auto_tune=auto_tune, spec=spec,
                                           device=device)
         factors, core, fits = planned.drive(
-            factors, (norm_x_sq,), iters=iters, tol=tol, verbose=verbose, label="tucker_hooi")
+            factors, (norm_x_sq,), iters=iters, tol=tol, verbose=verbose, label="tucker_hooi",
+            guards=guards, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
         return TuckerState(factors=factors, core=core, fit_history=fits)
 
     idx, val = to_device(st, device)

@@ -24,6 +24,7 @@ from .calibrate import (
     calibrate,
     calibrate_and_store,
     fit_spec,
+    l2_bytes,
     measure_hbm_bw,
     measure_peak_flops_f32,
     predicted_seconds,
@@ -53,5 +54,6 @@ __all__ = [
     "predicted_seconds",
     "resolve_spec",
     "roofline_counts",
+    "l2_bytes",
     "sweep_sample",
 ]

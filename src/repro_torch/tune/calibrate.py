@@ -44,6 +44,7 @@ __all__ = [
     "measure_hbm_bw",
     "measure_peak_flops_f32",
     "roofline_counts",
+    "l2_bytes",
     "sweep_sample",
     "fit_spec",
     "predicted_seconds",
@@ -52,9 +53,9 @@ __all__ = [
     "resolve_spec",
 ]
 
-#: With hbm_bw == peak_flops_f32 == 1, `t_mem` IS the byte count and
-#: `t_compute` IS the flop count.
-_UNIT_SPEC = GPUSpec(hbm_bw=1.0, peak_flops_f32=1.0)
+#: With hbm_bw == peak_flops_f32 == l2_bw == 1, `t_mem` IS the HBM byte
+#: count, `t_l2` the L2 byte count and `t_compute` the flop count.
+_UNIT_SPEC = GPUSpec(hbm_bw=1.0, peak_flops_f32=1.0, l2_bw=1.0)
 
 #: The reference's calibration configurations: tile_i and blk vary the
 #: layout's byte counts (and, on the reference's TPU model, the flops).
@@ -140,6 +141,10 @@ class CalibSample:
     label: str
     per_mode: tuple[tuple[float, float], ...]  # (mem_bytes, flops) per mode
     measured_s: float
+    # The bytes the PMS prices at the L2 rate (gathers and flushes), summed
+    # over the modes: `fit_spec` takes their time off the measured time, so
+    # it fits the HBM rate to the HBM bytes alone.
+    l2_bytes: float = 0.0
 
     @property
     def mem_bytes(self) -> float:
@@ -151,10 +156,16 @@ class CalibSample:
 
 
 def roofline_counts(ws) -> tuple[tuple[float, float], ...]:
-    """Exact (mem_bytes, flops) per output mode of a planned workspace, read
+    """Exact (HBM bytes, flops) per output mode of a planned workspace, read
     off the PMS with the unit-constant spec."""
     ests = ws.pms_estimates(_UNIT_SPEC)
     return tuple((float(ests[m].t_mem), float(ests[m].t_compute)) for m in sorted(ests))
+
+
+def l2_bytes(ws) -> float:
+    """The bytes the PMS prices at the L2 rate for a planned workspace,
+    summed over its modes (unit-constant spec)."""
+    return float(sum(e.t_l2 for e in ws.pms_estimates(_UNIT_SPEC).values()))
 
 
 def predicted_seconds(per_mode: Sequence[tuple[float, float]], spec: GPUSpec) -> float:
@@ -194,7 +205,8 @@ def sweep_sample(st, rank: int, cfg: MemoryControllerConfig, *, reps: int = 2, s
             t0 = time.perf_counter()
             ws.sweep(facs, idx, val, nxs)
             best = min(best, time.perf_counter() - t0)
-    return CalibSample(label=_cfg_label(cfg), per_mode=roofline_counts(ws), measured_s=best)
+    return CalibSample(label=_cfg_label(cfg), per_mode=roofline_counts(ws), measured_s=best,
+                       l2_bytes=l2_bytes(ws))
 
 
 # ---------------------------------------------------------------------------
@@ -212,19 +224,25 @@ def fit_spec(
     """Least-squares fit of (hbm_bw, peak_flops_f32) from measured sweeps.
 
     Solves ``t_i ~ bytes_i * x0 + flops_i * x1`` for x = (1/hbm_bw,
-    1/peak_flops_f32) over the samples' totals.  If a coefficient comes
+    1/peak_flops_f32) over the samples' totals, t_i being the measured
+    time less the sample's L2 bytes at `base.l2_bw` (the port's PMS prices
+    gathers and flushes at L2's rate, which this fit leaves as it is).  If a coefficient comes
     back non-positive (collinear samples, or one term noise-small), that
     constant falls back to the microbenchmark value (or `base`'s) and the
     other is refit alone.  `peak_flops` (bf16) keeps `base`'s bf16-to-fp32
-    ratio.  The reference's solution to the bit.  Raises ValueError on an
-    empty sample list or a non-positive time."""
+    ratio.  The reference's solution to the bit for samples without L2
+    bytes.  Raises ValueError on an empty sample list or a non-positive
+    time."""
     if not samples:
         raise ValueError("fit_spec needs at least one calibration sample")
     B = np.array([s.mem_bytes for s in samples], dtype=np.float64)
     F = np.array([s.flops for s in samples], dtype=np.float64)
-    t = np.array([s.measured_s for s in samples], dtype=np.float64)
+    # The L2 terms' time at the base spec's rate comes off first: the fit
+    # prices HBM bytes and flops only.
+    t = np.array([s.measured_s - s.l2_bytes / base.l2_bw for s in samples], dtype=np.float64)
     if np.any(t <= 0):
-        raise ValueError("calibration samples must have measured_s > 0")
+        raise ValueError("calibration samples must have measured_s > 0, and more than the "
+                         "time of their L2 bytes at the base spec's l2_bw")
     A = np.stack([B, F], axis=1)
     x, *_ = np.linalg.lstsq(A, t, rcond=None)
     inv_bw, inv_pf = float(x[0]), float(x[1])
@@ -268,7 +286,8 @@ class CalibrationResult:
         """Mean relative error of the fitted sum-form model over the
         samples."""
         errs = [abs(s.mem_bytes / self.spec.hbm_bw + s.flops / self.spec.peak_flops_f32
-                    - s.measured_s) / s.measured_s for s in self.samples]
+                    + s.l2_bytes / self.spec.l2_bw - s.measured_s) / s.measured_s
+                for s in self.samples]
         return float(np.mean(errs)) if errs else float("nan")
 
 

@@ -11,7 +11,12 @@ within the bound, 20 times over; the compute patterns (approach 1 and 2)
 on the card against float64; the one-shot dispatchers' launches and
 plan cache; and the kernels' wide paths on tensors of 6 and 7 modes (5 and
 6 input modes; MTTKRP also on hot rows, 20 launches a mode), with CP,
-Tucker and TT on a 6-mode tensor against the CPU path.  Marked `gpu`; they
+Tucker and TT on a 6-mode tensor against the CPU path; the resilience
+layer on the card: each kernel at the admission ladder's blocks (64 to 8
+slots) against float64, each format recovering from an injected NaN under
+"restart" and "fallback" (no launch after a fallback), a checkpoint round
+trip on CUDA tensors and a resumed run, and `plan_with_budget` on a preset.
+Marked `gpu`; they
 skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
 machine need not have) with
@@ -466,3 +471,106 @@ def test_wide_path_decompose_matches_cpu(cuda, fmt):
     a = decompose(st, rank, format=fmt, iters=3, init_factors=[f.to(cuda) for f in init], device=cuda)
     b = decompose(st, rank, format=fmt, iters=3, init_factors=init, device="cpu")
     assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
+
+
+# The admission ladder's blocks (repro_torch.resilience.plan_with_budget
+# halves blk from 256 down to FLOOR_BLK = 8): each kernel at each of them.
+LADDER_BLKS = (64, 32, 16, 8)
+
+
+@pytest.mark.parametrize("blk", LADDER_BLKS)
+@pytest.mark.parametrize("preset", ["tiny", "4d_small"])
+def test_kernels_at_ladder_blocks(cuda, preset, blk):
+    """Each kernel against its float64 plain version at blocks of 64 to 8
+    slots: fewer slots than a step holds, many blocks a range."""
+    st, cfg = frostt_like(preset), MemoryControllerConfig(dma=DMAEngineConfig(blk=blk))
+    check_mttkrp(cuda, st, 16, cfg)
+    check_ttmc(cuda, st, TUCKER_RANKS[preset][0], cfg)
+    check_ttcore(cuda, st, TT_RANKS[preset][0], cfg)
+
+
+RESILIENCE_RANKS = {"cp": 8, "tucker": (3, 5, 2), "tt": (3, 5)}
+
+
+@pytest.mark.parametrize("policy", ["restart", "fallback"])
+@pytest.mark.parametrize("fmt", ["cp", "tucker", "tt"])
+def test_recovery_on_the_card(cuda, fmt, policy):
+    """A NaN injected after iteration 1 on the card: the guard fires at
+    iteration 2 and the run recovers to its clean run's final fit within
+    1e-4 (the kernels' float32 sums vary in order); after a fallback no
+    kernel launches again."""
+    from repro_torch.resilience import GuardConfig
+    from repro_torch.testing import faults
+
+    st, rank = frostt_like("tiny"), RESILIENCE_RANKS[fmt]
+    counter = {"cp": mttkrp_blocked, "tucker": ttmc_blocked, "tt": ttcore_blocked}[fmt]
+    make = {"cp": make_planned_cp_als, "tucker": make_planned_tucker, "tt": make_planned_tt}[fmt]
+    init = [f.to(cuda) for f in cpu_init(fmt, st, rank)]
+    clean = decompose(st, rank, format=fmt, iters=5, init_factors=init, device=cuda)
+    ws = make(st, rank, device=cuda)
+    faults.inject_nan_factor(ws, at_iter=1)
+    before = counter.launches
+    out = decompose(st, rank, format=fmt, iters=5, init_factors=init, planned=ws,
+                    guards=GuardConfig(policy=policy), device=cuda)
+    assert len(out.fit_history) == 5 and all(math.isfinite(f) for f in out.fit_history)
+    assert abs(out.fit_history[-1] - clean.fit_history[-1]) <= 1e-4
+    # restart: 3 sweeps, then 5 from the start; fallback: the 3 sweeps before the switch
+    assert counter.launches - before == st.nmodes * (8 if policy == "restart" else 3)
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """CUDA tensors saved and restored onto the card bit for bit; a resumed
+    CP run starts from the saved padded factors exactly."""
+    from repro_torch.train import CheckpointManager
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"facs": (torch.randn((7, 4), generator=gen, device=cuda),
+                     torch.randn((5, 4), generator=gen, device=cuda)),
+            "fits": torch.tensor([0.1, 0.2], dtype=torch.float64, device=cuda)}
+    mgr = CheckpointManager(str(tmp_path / "tree"))
+    mgr.save(1, tree)
+    _, back = mgr.restore(device=cuda)
+    for a, b in zip((*tree["facs"], tree["fits"]), (*back["facs"], back["fits"])):
+        assert b.device == a.device and torch.equal(a, b)
+
+    st = frostt_like("tiny")
+    ws = make_planned_cp_als(st, 8, device=cuda)
+    decompose(st, 8, iters=2, planned=ws, checkpoint_path=str(tmp_path / "cp"), device=cuda)
+    _, saved = CheckpointManager(str(tmp_path / "cp")).restore(device=cuda)
+    seen = {}
+    inner = ws._sweep_call
+
+    def first_input(facs, *args, it):
+        seen.setdefault("facs", tuple(f.clone() for f in facs))
+        return inner(facs, *args, it=it)
+
+    ws._sweep_call = first_input
+    out = decompose(st, 8, iters=4, planned=ws, checkpoint_path=str(tmp_path / "cp"), device=cuda)
+    assert all(torch.equal(a, b) for a, b in zip(seen["facs"], saved["facs"]))
+    assert out.fit_history[:2] == saved["fits"].tolist() and len(out.fit_history) == 4
+
+
+def test_plan_with_budget_on_the_card(cuda):
+    """The ladder on a preset on the card: a budget at the blk-64 rung's
+    total admits a planned workspace at blk 64 or above, whose decompose
+    launches the kernel; one byte over the reference footprint takes
+    approach 1 after every rung down to blk 8, and launches nothing."""
+    from repro_torch.api import _lane_ranks
+    from repro_torch.resilience import admission_bytes, plan_with_budget, reference_footprint_bytes
+
+    st = frostt_like("4d_small")
+    build = lambda c: make_planned_cp_als(st, 16, cfg=c, device=cuda)  # noqa: E731
+    budget = admission_bytes(build(MemoryControllerConfig(dma=DMAEngineConfig(blk=64))))["total_bytes"]
+    ws, decision = plan_with_budget(build, budget)
+    assert decision["admitted"] == "pallas" and decision["blk"] >= 64
+    assert admission_bytes(ws)["total_bytes"] <= budget
+    before = mttkrp_blocked.launches
+    decompose(st, 16, iters=2, planned=ws, device=cuda)
+    assert mttkrp_blocked.launches == before + 2 * st.nmodes
+    ref = reference_footprint_bytes(st, _lane_ranks("cp", 16, st.nmodes))
+    ws, decision = plan_with_budget(build, ref + 1, reference_bytes=ref)
+    assert ws is None and decision["admitted"] == "reference"
+    assert [a["blk"] for a in decision["ladder"]] == [256, 128, 64, 32, 16, 8]
+    before = mttkrp_blocked.launches
+    out = decompose(st, 16, iters=2, hbm_budget=ref + 1, device=cuda)
+    assert mttkrp_blocked.launches == before and len(out.fit_history) == 2

@@ -47,7 +47,8 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.convert, repro_torch.kernels.build, "
             "repro_torch.tucker, repro_torch.tt, repro_torch.core.pms, repro_torch.tune, "
-            "repro_torch.obs.calibrate; "
+            "repro_torch.obs.calibrate, repro_torch.resilience, repro_torch.testing.faults, "
+            "repro_torch.train.checkpoint; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -63,6 +63,7 @@ from repro_torch.tune import (
     config_key,
     current_backend,
     fit_spec,
+    l2_bytes,
     measure_hbm_bw,
     measure_peak_flops_f32,
     predicted_seconds,
@@ -314,6 +315,22 @@ def test_resolve_spec_contract():
 # --- calibration on the CPU (an explicit device) -------------------------------
 
 
+def test_fit_spec_fits_the_hbm_rate_to_hbm_bytes():
+    """The PMS prices gathers and flushes at L2's rate: fit_spec takes
+    their time (at the base spec's l2_bw) off each measured time, so the
+    HBM rate is fitted to the HBM bytes alone, and L2 bytes the time does
+    not cover are refused."""
+    bw, pf, l2 = 3.0e12, 6.0e13, GPUSpec().l2_bw
+    rows = [(b, f, lb) for b, f, lb in ((1e9, 1e10, 4e9), (5e9, 1e10, 1e9), (1e9, 8e10, 8e9))]
+    fitted = fit_spec([CalibSample("x", ((b, f),), b / bw + f / pf + lb / l2, l2_bytes=lb)
+                       for b, f, lb in rows])
+    assert fitted.hbm_bw == pytest.approx(bw, rel=1e-9)
+    assert fitted.peak_flops_f32 == pytest.approx(pf, rel=1e-9)
+    assert fitted.l2_bw == l2
+    with pytest.raises(ValueError, match="L2 bytes"):
+        fit_spec([CalibSample("x", ((1e9, 1e9),), 1e-3, l2_bytes=l2 * 1e-3)])
+
+
 def test_microbenchmarks_time_only_a_card():
     for measure in (measure_hbm_bw, measure_peak_flops_f32):
         with pytest.raises(ValueError, match="CUDA device"):
@@ -327,6 +344,8 @@ def test_sweep_sample_counts_and_calibrate_and_store(tiny_tensor):
     s = sweep_sample(st, 4, CFG_SMALL, reps=1, device="cpu")
     ws = make_planned_cp_als(st, 4, cfg=CFG_SMALL, device="cpu")
     assert s.per_mode == roofline_counts(ws) and s.measured_s > 0
+    assert s.l2_bytes == l2_bytes(ws) == pytest.approx(
+        sum(e.t_gather + e.t_flush for e in ws.pms_estimates().values()) * GPUSpec().l2_bw)
     assert s.label == "tiles=(32,16,64),blk=64"
     res = calibrate_and_store(preset="tiny", rank=4, cfgs=(CFG_SMALL, MemoryControllerConfig()),
                               reps=1, microbench=False, device="cpu")
