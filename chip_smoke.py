@@ -74,9 +74,10 @@ printing one JSON line:
               beside its bound, and CP, Tucker and TT decompose for 3
               iterations with the launch counters read; tracing on the card:
               decompose(..., trace=path) for CP, Tucker and TT at NELL-2 size
-              (span counts and nesting, the steady sweep spans against
-              phases d, f and h, join_trace's achieved_pct) and the sweep
-              with tracing on against off, in turns; the three kernels at
+              (span counts and nesting, join_trace's achieved_pct) and the
+              drive with tracing on against off, in turns (the steady sweep
+              spans and the traced sweeps against the untraced sweeps;
+              phases d, f and h's printed beside them); the three kernels at
               NELL-2 size per mode in turns with their sources as they were
               before the wide paths (scripts/probe_kernels/*_before_wide.cu)
   l  resil.   the resilience layer at NELL-2 size: a clean rerun of each
@@ -96,6 +97,22 @@ printing one JSON line:
               every rung down to blk 8 (approach 1) and an impossible one
               (AdmissionError); each kernel at blk 64, 32, 16 and 8 on the
               presets against float64
+  m  dist.    the sharded planned path on the same tensor, D = 2 and 4
+              shards on the one card (shard_plan(["cuda:0"] * D)): per
+              format and D, the partition (tile bounds, shard nnz, the
+              makespan report) and the plan build; each mode's sharded
+              kernel output (one launch per shard, then the reduction)
+              against float64 (MTTKRP within 1e-5 of a column's max, TTMc
+              and TT-core within 1e-4) and against the single-device
+              output; ms per shard and per mode, and the reduction's ms;
+              the sharded sweep in turns with the single-device one;
+              decompose(..., method="pallas_sharded", iters=3) with the
+              launch counters reset just before and read just after (D x
+              modes x iterations launches), its peak device memory and its
+              fits against phases d, f and h within 1e-5;
+              mttkrp_sharded(method="approach1") on mode 0 against float64;
+              search_sharded for D = 4 (its pick, host seconds); the plan
+              cache cleared at the end
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -132,7 +149,15 @@ from repro_torch.core.cp_als import (  # noqa: E402
 )
 from repro_torch.core.hypergraph import approach1_traffic, approach2_traffic  # noqa: E402
 from repro_torch.core.hypergraph import stats as hg_stats  # noqa: E402
-from repro_torch.core.mttkrp import hadamard_rows, mttkrp  # noqa: E402
+from repro_torch.core.mttkrp import hadamard_rows, mttkrp, mttkrp_sharded  # noqa: E402
+from repro_torch.dist import Replicas, reduce_partials  # noqa: E402
+from repro_torch.dist.planned import (  # noqa: E402
+    make_sharded_planned_cp_als,
+    make_sharded_planned_tt,
+    make_sharded_planned_tucker,
+    shard_makespan_report,
+    shard_plan,
+)
 from repro_torch.core.remap import radix_digits, remap_radix, remap_stable  # noqa: E402
 from repro_torch.core.memctrl import (  # noqa: E402
     CacheEngineConfig,
@@ -143,6 +168,7 @@ from repro_torch.core.memctrl import (  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
+    _stack_call,
     _tt_bond_pairs,
     make_planned_cp_als,
     make_planned_mttkrp,
@@ -322,11 +348,15 @@ BEFORE_WIDE_RUN_MS = {"mttkrp": [2.20, 2.21, 2.19], "ttmc": [8.51, 8.48, 8.48],
 # in turns, may not pass this.
 BEFORE_WIDE_SLOWDOWN = 1.02
 BEFORE_WIDE_TURNS = 3
-# Tracing: the steady sweep spans against phases d, f and h's sweep times,
-# and the traced sweep against the untraced one (in turns), at most.
+# Tracing: the traced drives' steady sweep spans against the untraced
+# drives' steady sweeps, and the traced sweep against the untraced one, at
+# most; both sides timed in the same turns on one workspace.  The Tucker
+# sweep's level shifts by up to 5% within a run on an H100, traced or not,
+# back to back or driven (scripts/torch_trace_probe.py), so each side pools
+# the steady sweeps of several drives.
 TRACE_SWEEP_TOL = 0.05
 TRACE_OVERHEAD = 1.03
-TRACE_TURNS = ("on", "off", "off", "on")
+TRACE_TURNS = ("on", "off", "off", "on") * 3
 # Phase l: the resilience layer.  The guard settings timed in turns on one
 # CP workspace with the bare sweep-and-sync loop ("sync"); an unguarded
 # drive's steady sweep against that loop's, at most this far apart; a recovered run's final fit against its clean run's;
@@ -346,6 +376,14 @@ KILL_AT = 3
 KILL_CODE = 17
 LADDER_PRESET = "4d_small"
 LADDER_BLKS = (64, 32, 16, 8)
+# Phase m: the sharded planned path, D shards on the one card; its runs'
+# iterations (fits held to the first SHARD_ITERS of phases d, f and h within
+# TOL_FIT); the sharded and single-device sweeps in turns; the shard count
+# the sharded PMS search runs at.
+SHARD_COUNTS = (2, 4)
+SHARD_ITERS = 3
+SHARD_TURNS = ("single", "sharded", "sharded", "single")
+SHARD_SEARCH_D = 4
 
 
 def emit(obj: dict) -> None:
@@ -666,6 +704,8 @@ def main() -> int:
                {k: ctypes.CDLL(str(earlier_libs[src])) for k, src in BEFORE_WIDE.items()})
     torch.cuda.empty_cache()
     resilience_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, sweep_ms, gen)
+    torch.cuda.empty_cache()
+    dist_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen, entries)
 
     emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
@@ -1466,10 +1506,14 @@ TRACED = {
 
 def traced_runs(st, main_sweep_ms: dict) -> list[dict]:
     """decompose(..., trace=path) for each format on the NELL-2-size tensor:
-    the span counts and nesting, the steady sweep spans against the sweep
-    times of phases d, f and h, join_trace's row; then on one workspace the
-    sweep with tracing on and off in turns (TRACE_TURNS), each drive's
-    steady sweeps timed by its `drive.iter_seconds` series."""
+    the span counts and nesting and join_trace's row; then on one workspace
+    the drive with tracing on and off in turns (TRACE_TURNS), each drive's
+    steady sweeps timed by its `drive.iter_seconds` series and, when traced,
+    by its sweep spans.  The steady sweep spans (the first run's and the
+    traced turns') are held to the untraced turns' sweeps, and the traced
+    sweeps to the untraced ones.  Phases d, f and h's back-to-back sweeps,
+    which pay no per-sweep fit transfer and were timed minutes earlier, are
+    printed beside them."""
     out = []
     with tempfile.TemporaryDirectory() as tmp:
         for fmt, (rank, kw, label, kernel, build_ws) in TRACED.items():
@@ -1490,30 +1534,36 @@ def traced_runs(st, main_sweep_ms: dict) -> list[dict]:
                     check(drive["name"] == "drive" and by_id[drive["parent"]]["name"] == "decompose",
                           f"traced {fmt}: a sweep span is not under drive under decompose")
             sweep_ms = [r["dur"] / 1e3 for r in recs if r["name"] == "sweep"]
-            steady_ms = statistics.median(sweep_ms[1:])
-            gap = steady_ms / main_sweep_ms[fmt] - 1.0
-            check(abs(gap) <= TRACE_SWEEP_TOL,
-                  f"traced {fmt}: steady sweep span {steady_ms} ms vs {main_sweep_ms[fmt]} ms")
             rows = join_trace(path)
             check(len(rows) == 1 and rows[0]["label"] == label and rows[0]["achieved_pct"] is not None,
                   f"traced {fmt}: join_trace rows {rows}")
 
             ws = build_ws(st, rank, device="cuda")
             turns = {"on": [], "off": []}
+            spans = list(sweep_ms[1:])
             for turn in TRACE_TURNS:
                 metrics.reset()
+                tracer = obs_trace.Tracer() if turn == "on" else None
                 decompose(st, rank, format=fmt, iters=ITERS, seed=0, planned=ws, device=ws.device,
-                          trace=turn == "on", **kw)
+                          trace=tracer, **kw)
                 turns[turn] += [x * 1e3 for x in metrics.histogram("drive.iter_seconds", label=label).sample[1:]]
+                if tracer is not None:
+                    spans += [r["dur"] / 1e3 for r in tracer.records if r["name"] == "sweep"][1:]
             on_ms, off_ms = statistics.median(turns["on"]), statistics.median(turns["off"])
+            steady_ms = statistics.median(spans)
+            gap = steady_ms / off_ms - 1.0
+            check(abs(gap) <= TRACE_SWEEP_TOL,
+                  f"traced {fmt}: steady sweep span {steady_ms} ms vs {off_ms} ms untraced")
             check(on_ms / off_ms <= TRACE_OVERHEAD,
                   f"{fmt}: traced sweep {on_ms} ms against {off_ms} ms untraced")
             out.append({"format": fmt, "launches": launches, "span_counts": counts,
                         "sweep_span_ms": sweep_ms, "steady_sweep_span_ms": steady_ms,
-                        "main_sweep_ms": main_sweep_ms[fmt], "steady_vs_main": gap,
+                        "steady_vs_untraced": gap, "main_sweep_ms": main_sweep_ms[fmt],
+                        "steady_vs_main": steady_ms / main_sweep_ms[fmt] - 1.0,
                         "join_trace": rows[0], "turns": list(TRACE_TURNS),
                         "traced_sweep_ms": on_ms, "untraced_sweep_ms": off_ms,
-                        "traced_over_untraced": on_ms / off_ms})
+                        "traced_over_untraced": on_ms / off_ms,
+                        "traced_samples_ms": turns["on"], "untraced_samples_ms": turns["off"]})
             del ws
             torch.cuda.empty_cache()
     return out
@@ -1849,6 +1899,186 @@ def resilience_phase(st, main_fits: dict, main_sweep_ms: float, gen: torch.Gener
           "footprint": footprint, "guards": guards, "recovery": recovered, "resumed": resumed,
           "admission": admission, "tol_recovered": TOL_RECOVERED,
           "unguarded_sweep_tol": UNGUARDED_SWEEP_TOL, "drive_sync_tol": DRIVE_SYNC_TOL})
+
+
+def sharded_formats(dev: torch.device, gen: torch.Generator) -> dict:
+    """Per format: the rank, the single-device and sharded workspace
+    constructors, the format's kernel (entry key, wrapper, plain version and
+    the extra arguments it takes at mode m), the bar against float64, the
+    decompose keywords, random true factors, and whether the single-device
+    sweep takes the stream."""
+    pairs = _tt_bond_pairs(TT_RANKS, len(NELL2_SHAPE))
+
+    def others(xs, m):
+        return tuple(x for k, x in enumerate(xs) if k != m)
+
+    return {
+        "cp": dict(rank=RANK, single=make_planned_cp_als, sharded=make_sharded_planned_cp_als,
+                   entry="mttkrp", kernel=mttkrp_blocked, plain=mttkrp_blocked_plain,
+                   extra=lambda m: (), tol=TOL_PRESET, kw={}, stream=True,
+                   true=lambda st: [torch.randn((s, RANK), generator=gen, device=dev) / math.sqrt(RANK)
+                                    for s in st.shape]),
+        "tucker": dict(rank=CORE_RANKS, single=make_planned_tucker, sharded=make_sharded_planned_tucker,
+                       entry="ttmc", kernel=ttmc_blocked, plain=ttmc_blocked_plain,
+                       extra=lambda m: (others(CORE_RANKS, m),), tol=TOL_FULL, kw={}, stream=False,
+                       true=lambda st: init_tucker_factors(st.shape, CORE_RANKS, seed=0, device=dev)),
+        "tt": dict(rank=TT_RANKS, single=make_planned_tt, sharded=make_sharded_planned_tt,
+                   entry="ttcore", kernel=ttcore_blocked, plain=ttcore_blocked_plain,
+                   extra=lambda m: (others(pairs, m), m), tol=TOL_FULL, kw={"init": "random"},
+                   stream=True,
+                   true=lambda st: [core_to_matrix(c) for c in
+                                    init_tt_cores(st.shape, TT_RANKS, seed=0, device=dev)]),
+    }
+
+
+def dist_phase(st, main_fits: dict, gen: torch.Generator, entries: dict) -> None:
+    """Phase m on the NELL-2-size tensor `st`: the sharded planned path, D
+    shards on the one card, for CP, Tucker and TT (see the module
+    docstring).  Adds each kernel's sharded launches to its entry of the
+    `kernels` line (`entries`, keyed "mttkrp", "ttmc", "ttcore")."""
+    phase_t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    plan_cache_clear()
+    idx, val = to_device(st, dev)
+    norm_x_sq = torch.tensor(float((st.values.astype("float64") ** 2).sum()), device=dev)
+    formats = sharded_formats(dev, gen)
+    # The single-device workspaces stay alive for the phase (three layouts,
+    # about 15.5 GB): their outputs and sweeps are what the shards are
+    # held to.  Each kernel's float64 output per mode, on random factors.
+    prepared = {}
+    for fmt, f in formats.items():
+        single, build_s = host_s(lambda: f["single"](st, f["rank"], device=dev))
+        true = f["true"](st)
+        facs = single.pad_factors(true)
+        modes = []
+        for m in range(st.nmodes):
+            plan = single.plan_for(m)
+            in_facs = [facs[im][: plan.in_rows[n]] for n, im in enumerate(plan.in_modes)]
+            extra = f["extra"](m)
+            exact = f["plain"](dataclasses.replace(plan, vals=plan.vals.double()),
+                               [x.double() for x in in_facs], *extra)
+            modes.append({"exact": exact, "single": f["kernel"](plan, in_facs, *extra)})
+        prepared[fmt] = {"single": single, "build_s": build_s, "true": true, "facs": facs, "modes": modes}
+    torch.cuda.synchronize()
+
+    results = []
+    for nshards in SHARD_COUNTS:
+        dist = shard_plan([dev] * nshards)
+        plan_cache_clear()
+        for fmt, f in formats.items():
+            pre = prepared[fmt]
+            # CP builds the layouts; Tucker and TT take them from the plan
+            # cache (one layout per tensor, config and shard count).
+            ws, build_s = host_s(lambda: f["sharded"](st, f["rank"], dist=dist))
+            report = shard_makespan_report(ws)
+            reps = Replicas(pre["facs"], dist.devices)
+            modes = []
+            for m in range(st.nmodes):
+                extra = f["extra"](m)
+                outs = _stack_call(ws.stacks[m], f["kernel"], reps, *extra)
+                got = reduce_partials(outs)
+                torch.cuda.synchronize()
+                exact, single_out = pre["modes"][m]["exact"], pre["modes"][m]["single"]
+                abs_err, rel_err = errors(got, exact)
+                check(rel_err <= f["tol"], f"{fmt} {nshards} shards mode {m}: sharded rel err {rel_err}")
+                _, gap_single = errors(got, single_out.double())
+                stack = ws.stacks[m]
+                shard_ms = []
+                for plan in stack.plans:
+                    facs_d = reps.on(plan.device)
+                    in_facs = [facs_d[im][: plan.in_rows[n]] for n, im in enumerate(plan.in_modes)]
+                    shard_ms.append(cuda_ms(lambda: f["kernel"](plan, in_facs, *extra), KERNEL_REPS))
+                modes.append({"mode": m, "tile_bounds": list(stack.tile_bounds),
+                              "shard_nnz": list(stack.shard_nnz),
+                              "shard_nblocks": list(stack.shard_nblocks),
+                              "max_abs_err": abs_err, "max_rel_err": rel_err,
+                              "max_rel_gap_single": gap_single, "shard_ms": shard_ms,
+                              "sum_shard_ms": sum(shard_ms),
+                              "reduce_ms": cuda_ms(lambda: reduce_partials(outs), KERNEL_REPS)})
+                del outs, got
+            # The sharded sweep in turns with the single-device one, each
+            # from the same factors after one warm sweep.
+            single = pre["single"]
+            args_single = (idx, val, norm_x_sq) if f["stream"] else (norm_x_sq,)
+            runs = {"single": (single, args_single), "sharded": (ws, (norm_x_sq,))}
+            facs = {k: w.sweep(w.pad_factors(pre["true"]), *a, first=True)[0]
+                    for k, (w, a) in runs.items()}
+            turns = {"single": [], "sharded": []}
+            for k in SHARD_TURNS:
+                w, a = runs[k]
+                turns[k].append(cuda_ms(lambda: w.sweep(facs[k], *a), SWEEP_REPS))
+            del facs
+            # The main path, as a user calls it, on this workspace.
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            state, decompose_s = host_s(lambda: decompose(
+                st, f["rank"], format=fmt, method="pallas_sharded", planned=ws, iters=SHARD_ITERS,
+                seed=0, **f["kw"]))
+            launches = {"mttkrp": mttkrp_blocked.launches, "ttmc": ttmc_blocked.launches,
+                        "ttcore": ttcore_blocked.launches}
+            peak = torch.cuda.max_memory_allocated()
+            want = nshards * st.nmodes * SHARD_ITERS
+            check(launches[f["entry"]] == want and sum(launches.values()) == want,
+                  f"{fmt} {nshards} shards: launches {launches}, expected {want} of {f['entry']}")
+            fits = state.fit_history
+            gap = max(abs(a - b) for a, b in zip(fits, main_fits[fmt][:SHARD_ITERS]))
+            check(len(fits) == SHARD_ITERS and gap <= TOL_FIT,
+                  f"{fmt} {nshards} shards: fits {fits} against {main_fits[fmt][:SHARD_ITERS]}")
+            results.append({
+                "format": fmt, "nshards": nshards, "devices": [str(d) for d in dist.devices],
+                "single_plan_build_s": pre["build_s"], "plan_build_s": build_s,
+                "plan_bytes": ws.plan_bytes(), "single_plan_bytes": single.plan_bytes(),
+                "makespan_report": {str(k): v for k, v in report["modes"].items()},
+                "worst_block_imbalance": report["worst_block_imbalance"], "modes": modes,
+                "sweep_ms": min(turns["sharded"]), "single_sweep_ms": min(turns["single"]),
+                "sweep_turns_ms": turns, "launches": launches[f["entry"]],
+                "decompose_s": decompose_s, "resident_before_bytes": resident,
+                "peak_device_bytes": peak, "fits": fits,
+                "main_fits": main_fits[fmt][:SHARD_ITERS], "max_fit_gap": gap})
+            entries[f["entry"]].setdefault("sharded", []).append({
+                "nshards": nshards, "launches": launches[f["entry"]],
+                "mode_sum_shard_ms": [x["sum_shard_ms"] for x in modes],
+                "mode_reduce_ms": [x["reduce_ms"] for x in modes],
+                "max_rel_err": max(x["max_rel_err"] for x in modes)})
+            del ws, state, reps
+        plan_cache_clear()
+        torch.cuda.empty_cache()
+    del prepared
+    torch.cuda.empty_cache()
+
+    # The compute pattern over the shards: approach 1 on mode 0, the stream
+    # sorted by mode 0 and cut into SHARD_SEARCH_D pieces.
+    dist = shard_plan([dev] * SHARD_SEARCH_D)
+    sidx, sval, _ = remap_stable(idx, val, 0)
+    true = formats["cp"]["true"](st)
+    fn = mttkrp_sharded(dist, 0, st.shape[0], method="approach1", sorted_by_mode=True)
+    got = fn(sidx, sval, true)
+    _, pattern_err = errors(got, exact_mttkrp(idx, val, true, 0, st.shape[0]))
+    check(pattern_err <= TOL_FULL, f"mttkrp_sharded approach1: rel err {pattern_err}")
+    pattern_ms = cuda_ms(lambda: fn(sidx, sval, true), PATTERN_REPS)
+    del sidx, sval, got, true, idx, val
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    best = pms.search_sharded(st, 0, RANK, SHARD_SEARCH_D, top_k=PMS_LISTED)
+    search_s = time.perf_counter() - t0
+    default = pms.predict_sharded(st, 0, RANK, SHARD_SEARCH_D, MemoryControllerConfig(), exact=False)
+    plan_cache_clear()
+    emit({"phase": "m", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "iters": SHARD_ITERS, "runs": results,
+          "mttkrp_sharded_approach1": {"nshards": SHARD_SEARCH_D, "mode": 0, "ms": pattern_ms,
+                                       "max_rel_err": pattern_err},
+          "search_sharded": {"nshards": SHARD_SEARCH_D, "mode": 0, "kernel": "mttkrp",
+                             "host_s": search_s,
+                             "top": [{"cfg": cfg_label(e.cfg), "t_total": e.t_total, "t_sum": e.t_sum,
+                                      "critical_shard": e.critical_shard, "imbalance": e.imbalance}
+                                     for e in best],
+                             "default": {"cfg": cfg_label(default.cfg), "t_total": default.t_total,
+                                         "t_sum": default.t_sum}},
+          "plan_cache_after": plan_cache_stats()["size"],
+          "tol_mttkrp": TOL_PRESET, "tol_ttmc_ttcore": TOL_FULL, "tol_fit": TOL_FIT})
 
 
 if __name__ == "__main__":

@@ -15,6 +15,10 @@ two MTTKRP compute patterns on the raw stream (`method="approach1"` over
 the stream the Tensor Remapper sorts on the device, `"approach2"`), Tucker
 and TT `method="reference"`, and the one-shot dispatchers `mttkrp_auto`,
 `tucker_auto` and `tt_auto` with their plan cache (`kernels/ops.py`).
+`method="pallas_sharded"` splits each mode's stream into balanced,
+tile-aligned shards (`dist/`), one plan per shard on its device, the
+kernels launched once per shard and the partial outputs reduced; the
+shards may share one card (`dist.planned.shard_plan(["cuda:0"] * 4)`).
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no device given they raise instead of falling back to the CPU.

@@ -14,6 +14,9 @@
     cp = decompose(st, 16, guards=GuardConfig("fallback"))   # NaN -> the reference sweep
     cp = decompose(st, 16, hbm_budget=2 * 1024**3)     # admission ladder under a budget
     cp = decompose(st, 16, checkpoint_path="ckpt")     # checkpoints, resumed on the next call
+    cp = decompose(st, 16, method="pallas_sharded", devices=2)   # 2 shards on 2 cards
+    cp = decompose(st, 16, method="pallas_sharded",
+                   dist=shard_plan(["cuda:0"] * 4))    # 4 shards on one card, in turn
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ __all__ = ["decompose"]
 
 _FORMATS = ("cp", "tucker", "tt")
 # The methods each format takes: the planned kernel, or its plain path(s).
-_METHODS = {"cp": ("pallas", "approach1", "approach2"), "tucker": ("pallas", "reference"),
-            "tt": ("pallas", "reference")}
+_METHODS = {"cp": ("pallas", "pallas_sharded", "approach1", "approach2"),
+            "tucker": ("pallas", "pallas_sharded", "reference"),
+            "tt": ("pallas", "pallas_sharded", "reference")}
 
 
 def _lane_ranks(format: str, r, nmodes: int) -> tuple[int, ...]:
@@ -103,6 +107,8 @@ def decompose(
     spec="default",
     cfg=None,
     device: str | torch.device | None = None,
+    devices=None,
+    dist=None,
     verbose: bool = False,
     trace=None,
     guards=None,
@@ -119,7 +125,11 @@ def decompose(
         broadcasts to every bond).
       format: 'cp' (CP-ALS), 'tucker' (HOOI) or 'tt' (TT-ALS).
       method: 'pallas' (the default): the format's planned CUDA kernel on
-        one device-resident BlockPlan per mode, built once; for CP
+        one device-resident BlockPlan per mode, built once;
+        'pallas_sharded': the sharded planned path, each mode's stream
+        split into balanced output-tile ranges with one plan per shard on
+        its device, the kernel launched once per shard and the partial
+        outputs reduced onto the first shard's device; for CP
         'approach1' / 'approach2', the paper's compute patterns on the raw
         stream (`core.mttkrp`); for Tucker and TT 'reference', the format's
         plain PyTorch right-hand side on the raw stream.
@@ -135,7 +145,9 @@ def decompose(
         except TT's SVD init.
       init: TT only: 'auto' (the default), 'svd' or 'random' (see `tt_als`).
       planned: a prebuilt `PlannedCPALS`, `PlannedTucker` or `PlannedTT`
-        whose plans are reused (method='pallas' only).
+        (method='pallas'), or their `Sharded*` counterparts
+        (method='pallas_sharded'), whose plans are reused; checked against
+        `format` and `method`.
       auto_tune / spec / cfg: the plan geometry of a workspace built here:
         `cfg` (a `MemoryControllerConfig`) for every mode, or, with
         auto_tune=True, the PMS's pick per mode for the format's kernel
@@ -147,6 +159,11 @@ def decompose(
         spec from the cache; calibrated on the card on a miss).
       device: CUDA unless given; raises when no GPU is present and no device
         was given.
+      devices / dist: the placement of method='pallas_sharded', in place of
+        `device`: a `repro_torch.dist.ShardingPlan`, or what
+        `repro_torch.dist.planned.shard_plan` takes (a count of CUDA
+        devices, or a sequence of devices, repeats allowed:
+        ["cpu"] * 4 runs 4 shards on the CPU).
       trace: tracing for this call (`repro_torch.obs.trace`): True collects
         spans into a fresh in-memory `Tracer`; a path collects AND exports
         them as JSONL on exit; an existing `Tracer` appends to it;
@@ -160,12 +177,12 @@ def decompose(
         non-finite factors on a cadence) with raise, restart or fallback
         (to the format's plain reference sweep) recovery.
       hbm_budget: device-memory admission (method='pallas' and the
-        reference methods): the workspace's footprint (`plan_bytes()`,
-        the padded factors and its kernel's shared memory per CTA) must
-        fit this many bytes.  Over budget, the ladder halves the block
-        size down to `FLOOR_BLK`, then takes the reference method
-        ('approach1' for CP, 'reference' otherwise), and only then raises
-        `AdmissionError`.  A given `planned=` is admitted as it is;
+        reference methods; refused for 'pallas_sharded'): the workspace's
+        footprint (`plan_bytes()`, the padded factors and its kernel's
+        shared memory per CTA) must fit this many bytes.  Over budget,
+        the ladder halves the block size down to `FLOOR_BLK`, then takes
+        the reference method ('approach1' for CP, 'reference' otherwise),
+        and only then raises `AdmissionError`.  A given `planned=` is admitted as it is;
         auto_tune=True is refused.
       checkpoint_every / checkpoint_path: save the padded factors and the
         fits every k iterations; a directory that holds a checkpoint
@@ -187,6 +204,12 @@ def decompose(
         raise ValueError(f"layout= and mttkrp_fn= are taken by format='cp' only, not format={format!r}")
     if auto_tune not in (False, True, "cached"):
         raise ValueError(f"auto_tune must be False, True or 'cached', got {auto_tune!r}")
+    if (devices is not None or dist is not None) and device is not None:
+        raise ValueError("device= and devices=/dist= were both passed: method='pallas_sharded' "
+                         "places its shards by devices=/dist=, every other method by device=")
+    if hbm_budget is not None and method == "pallas_sharded":
+        raise ValueError("hbm_budget applies to method='pallas' and the reference methods, "
+                         "got method='pallas_sharded'")
     if format == "cp" and not isinstance(rank, int):
         raise ValueError(f"format='cp' takes a single integer rank, got {rank!r}")
     if format == "tt":
@@ -202,9 +225,9 @@ def decompose(
                                         hbm_budget=hbm_budget, auto_tune=auto_tune, cfg=cfg,
                                         device=resolve_device(device), verbose=verbose)
         common = dict(iters=iters, method=method, tol=tol, seed=seed, device=device,
-                      planned=planned, verbose=verbose, auto_tune=auto_tune, spec=spec, cfg=cfg,
-                      guards=guards, checkpoint_every=checkpoint_every,
-                      checkpoint_path=checkpoint_path)
+                      devices=devices, dist=dist, planned=planned, verbose=verbose,
+                      auto_tune=auto_tune, spec=spec, cfg=cfg, guards=guards,
+                      checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
         if format == "tt":
             return tt_als(st, r, init=init or "auto", init_cores=init_factors, **common)
         if format == "tucker":

@@ -128,11 +128,16 @@ def model_norm_sq(factors: Sequence[torch.Tensor], lam: torch.Tensor) -> torch.T
     return lam @ g @ lam
 
 
+def _fit_from(norm_x_sq: torch.Tensor, model_sq: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
+    """fit = 1 - sqrt(||X||^2 + ||X_hat||^2 - 2<X, X_hat>) / ||X||."""
+    resid_sq = torch.clamp(norm_x_sq + model_sq - 2.0 * inner, min=0.0)
+    return 1.0 - torch.sqrt(resid_sq) / torch.sqrt(norm_x_sq)
+
+
 def fit_value(indices, values, factors, lam, norm_x_sq) -> torch.Tensor:
     """fit = 1 - ||X - X_hat|| / ||X||."""
     inner = inner_with_model(indices, values, factors, lam)
-    resid_sq = torch.clamp(norm_x_sq + model_norm_sq(factors, lam) - 2.0 * inner, min=0.0)
-    return 1.0 - torch.sqrt(resid_sq) / torch.sqrt(norm_x_sq)
+    return _fit_from(norm_x_sq, model_norm_sq(factors, lam), inner)
 
 
 def _update_mode(mt: torch.Tensor, factors: list, m: int, first: bool):
@@ -144,7 +149,7 @@ def _update_mode(mt: torch.Tensor, factors: list, m: int, first: bool):
     return factors, lam
 
 
-METHODS = ("pallas", "approach1", "approach2")
+METHODS = ("pallas", "pallas_sharded", "approach1", "approach2")
 LAYOUTS = ("remap", "copies")
 
 
@@ -215,6 +220,8 @@ def cp_als(
     auto_tune: bool | str = False,
     spec="default",
     cfg=None,
+    devices=None,
+    dist=None,
     verbose: bool = False,
     guards=None,
     checkpoint_every: int | None = None,
@@ -224,8 +231,12 @@ def cp_als(
 
     method: 'pallas' (the default) - the planned MTTKRP kernel, one
       BlockPlan per output mode built once (`make_planned_cp_als`) and
-      reused by every iteration; 'approach1' / 'approach2' - the paper's
-      compute patterns (Sec. 3) on the raw stream on `device`.
+      reused by every iteration; 'pallas_sharded' - the sharded planned
+      path (`make_sharded_planned_cp_als`): each mode's stream split into
+      balanced output-tile ranges, one plan per shard on its device, the
+      kernel launched once per shard and the partial outputs reduced;
+      'approach1' / 'approach2' - the paper's compute patterns (Sec. 3) on
+      the raw stream on `device`.
     layout: for 'approach1' / 'approach2' and `mttkrp_fn`: 'remap' - one
       stream, sorted by mode 0 once and re-sorted on the device before each
       mode (Alg. 5); 'copies' - one sorted copy per mode (more device
@@ -240,8 +251,13 @@ def cp_als(
       the reference's `jax.random` draws for the same seed, so parity with
       the reference needs its factors passed in here.
     device: CUDA unless the caller passes one (raises if no GPU is present).
+    devices / dist: 'pallas_sharded' placement (in place of `device`): a
+      `ShardingPlan` (`repro_torch.dist.planned.shard_plan`), or what
+      `shard_plan` takes: a count of CUDA devices, or a sequence of devices
+      (repeats allowed).  The factors live on the first shard's device.
     planned: a prebuilt `PlannedCPALS` (`make_planned_cp_als`, which also
-      takes the plan geometry) to reuse its plans across calls.
+      takes the plan geometry), or `ShardedPlannedCPALS` for
+      'pallas_sharded', to reuse its plans across calls.
     auto_tune / spec / cfg: the workspace's plan geometry when `planned` is
       not given: `cfg` (a `MemoryControllerConfig`) for every mode, or the
       PMS's pick per mode for the MTTKRP kernel (auto_tune=True; "cached"
@@ -251,19 +267,43 @@ def cp_als(
       resilience surface (`repro_torch.resilience`): a `GuardConfig` for
       divergence detection with raise/restart/fallback recovery, and
       checkpoints every k iterations with resume from a populated
-      directory.  method='pallas' without `mttkrp_fn` only.
+      directory.  The planned paths without `mttkrp_fn` only.
     """
-    from ..kernels.ops import PlannedCPALS, make_planned_cp_als  # kernels build on core
+    from ..kernels.ops import (  # kernels build on core
+        PlannedCPALS,
+        ShardedPlannedCPALS,
+        make_planned_cp_als,
+        make_sharded_planned_cp_als,
+    )
 
     if layout not in LAYOUTS:
         raise ValueError(f"unknown layout {layout!r}: expected 'remap' or 'copies'")
     if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}: expected 'pallas', 'approach1' or 'approach2'")
-    check_planned_method(method, planned)
+        raise ValueError(f"unknown method {method!r}: expected 'pallas', 'pallas_sharded', "
+                         f"'approach1' or 'approach2'")
+    check_planned_method(method, planned, devices, dist)
     check_drive_extras(method, guards, checkpoint_every, checkpoint_path, mttkrp_fn=mttkrp_fn)
     if planned is not None and mttkrp_fn is not None:
         raise ValueError("mttkrp_fn replaces the planned kernel; the planned workspace would be "
                          "silently ignored (pass planned.mttkrp_fn as mttkrp_fn instead)")
+    if method == "pallas_sharded":
+        if mttkrp_fn is not None:
+            raise ValueError("mttkrp_fn cannot override the sharded planned path")
+        if device is not None:
+            raise ValueError("method='pallas_sharded' places its shards by devices=/dist=; "
+                             "device= would be silently ignored")
+        if planned is None:
+            planned = make_sharded_planned_cp_als(st, rank, dist=dist, devices=devices, cfg=cfg,
+                                                  auto_tune=auto_tune, spec=spec)
+        else:
+            check_workspace(planned, ShardedPlannedCPALS, {"shape": st.shape, "rank": rank},
+                            method=method, devices=devices, dist=dist)
+        factors = _initial_factors(st, rank, init_factors, seed, planned.device)
+        norm_x_sq = torch.tensor(norm_sq(st), dtype=torch.float32, device=planned.device)
+        factors, lam, fits = planned.drive(
+            factors, (norm_x_sq,), iters=iters, tol=tol, verbose=verbose, label="cp_als",
+            guards=guards, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
+        return CPState(factors=factors, lam=lam, fit_history=fits)
     device = resolve_device(device)
     factors = _initial_factors(st, rank, init_factors, seed, device)
     norm_x_sq = torch.tensor(norm_sq(st), dtype=torch.float32, device=device)
@@ -272,7 +312,8 @@ def cp_als(
             planned = make_planned_cp_als(st, rank, cfg=cfg, auto_tune=auto_tune, spec=spec,
                                           device=device)
         else:
-            check_workspace(planned, PlannedCPALS, {"shape": st.shape, "rank": rank}, device)
+            check_workspace(planned, PlannedCPALS, {"shape": st.shape, "rank": rank}, device,
+                            method=method)
         idx, val = to_device(st, device)
         factors, lam, fits = planned.drive(
             factors, (idx, val, norm_x_sq), iters=iters, tol=tol, verbose=verbose, label="cp_als",

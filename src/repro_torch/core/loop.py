@@ -17,6 +17,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 
@@ -134,15 +135,19 @@ def given_factors(init_factors: Sequence, shapes: Sequence[tuple[int, ...]],
     return out
 
 
-def check_planned_method(method: str, planned) -> None:
-    """A workspace serves only the planned path: raise where one is passed
-    with another method, which would otherwise ignore it silently.  (The
-    reference's check also names its sharded path, which the port does not
-    have yet.)"""
-    if planned is not None and method != "pallas":
+def check_planned_method(method: str, planned, devices=None, dist=None) -> None:
+    """The argument contract of cp_als, tucker_hooi and tt_als: a workspace serves
+    only the planned paths, and `devices=` / `dist=` only the sharded one;
+    raise where either is passed with another method, which would
+    otherwise ignore it silently."""
+    if planned is not None and method not in ("pallas", "pallas_sharded"):
         raise ValueError(
-            f"a planned workspace was passed but method is {method!r}, not 'pallas'; "
-            f"the workspace would be silently ignored")
+            f"a planned workspace was passed but method is {method!r}, not 'pallas' or "
+            f"'pallas_sharded'; the workspace would be silently ignored")
+    if method != "pallas_sharded" and (devices is not None or dist is not None):
+        raise ValueError(
+            f"devices/dist apply only to method='pallas_sharded' (got method={method!r}); "
+            f"they would be silently ignored")
 
 
 def check_drive_extras(method: str, guards, checkpoint_every, checkpoint_path, *,
@@ -154,27 +159,44 @@ def check_drive_extras(method: str, guards, checkpoint_every, checkpoint_path, *
     reference folds `mttkrp_fn` into it."""
     if guards is None and checkpoint_every is None and checkpoint_path is None:
         return
-    if method != "pallas" or mttkrp_fn is not None:
+    if method not in ("pallas", "pallas_sharded") or mttkrp_fn is not None:
         raise ValueError(
             "guards/checkpoint_every/checkpoint_path are consumed by the planned drive loop: "
-            f"they require method='pallas' without mttkrp_fn (got method={method!r}"
-            f"{', mttkrp_fn' if mttkrp_fn is not None else ''}; they would be silently ignored)")
+            f"they require method='pallas' or 'pallas_sharded' without mttkrp_fn (got "
+            f"method={method!r}{', mttkrp_fn' if mttkrp_fn is not None else ''}; they would be "
+            f"silently ignored)")
 
 
-def check_workspace(planned, cls: type, built_for: dict, device: torch.device) -> None:
+def check_workspace(planned, cls: type, built_for: dict, device: torch.device | None = None, *,
+                    method: str = "pallas", devices=None, dist=None) -> None:
     """Raise unless `planned` is a `cls` whose attributes equal the call's
-    values in `built_for` (e.g. {"shape": ..., "rank": ...}) and whose plans
-    live on `device`."""
+    values in `built_for` (e.g. {"shape": ..., "rank": ...}) and that lives
+    where the call asks: on `device` (the planned path), or on the shards
+    `dist` or `devices` name (the sharded path; a count or a sequence of
+    devices)."""
     if not isinstance(planned, cls):
-        raise ValueError(f"planned must be a {cls.__name__}, got {type(planned).__name__}")
+        hint = ("" if method == "pallas_sharded"
+                else " (use method='pallas_sharded' for sharded workspaces)")
+        raise ValueError(f"method={method!r} needs a {cls.__name__} workspace, got "
+                         f"{type(planned).__name__}{hint}")
     has = {k: getattr(planned, k) for k in built_for}
     if has != built_for:
         def fmt(d):
             return " ".join(f"{k}={v}" for k, v in d.items())
         raise ValueError(f"planned workspace does not match the call: built for {fmt(has)}, "
                          f"the call has {fmt(built_for)}")
-    if planned.device != device:
+    if device is not None and planned.device != device:
         raise ValueError(f"planned workspace lives on {planned.device}, the call asks for {device}")
+    if dist is not None and planned.dist != dist:
+        raise ValueError(f"planned workspace spans {[str(d) for d in planned.dist.devices]}, "
+                         f"dist= asks for {[str(d) for d in dist.devices]}")
+    if devices is not None:
+        same = (planned.nshards == devices if isinstance(devices, int)
+                else planned.dist.devices == tuple(resolve_device(d) for d in devices))
+        if not same:
+            raise ValueError(f"planned workspace spans {planned.nshards} shards on "
+                             f"{[str(d) for d in planned.dist.devices]}, devices={devices!r} "
+                             f"was requested")
 
 
 def finish_iter(fits, fit, it: int, tol, verbose: bool, label: str) -> bool:

@@ -16,6 +16,9 @@ and differ in traversal order:
   * Approach 2 (input direction, Alg. 4): the stream in any order, each
     contribution scatter-added into its output row (`index_add_`, float32
     atomics on the card).
+
+`mttkrp_sharded` runs either, or the planned kernel, over the shards of a
+`ShardingPlan` and reduces their partial outputs.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["hadamard_rows", "mttkrp", "mttkrp_approach1", "mttkrp_approach2"]
+__all__ = ["hadamard_rows", "mttkrp", "mttkrp_approach1", "mttkrp_approach2", "mttkrp_sharded"]
 
 #: Slots a segment of approach 1's reduction may hold.  A longer run (a hot
 #: output row) is summed in segments of SEGMENT slots, and their sums again,
@@ -142,3 +145,60 @@ def mttkrp(
     if method == "approach2":
         return mttkrp_approach2(indices, values, factors, mode, out_rows)
     raise ValueError(f"unknown method {method!r}")
+
+
+def mttkrp_sharded(
+    plan,
+    mode: int,
+    out_rows: int,
+    method: str = "approach1",
+    *,
+    sorted_by_mode: bool = False,
+    st=None,
+    rank: int | None = None,
+    cfg=None,
+):
+    """An MTTKRP over the shards of `plan` (a `ShardingPlan`), as a callable
+    (indices, values, factors) -> (out_rows, R) on the first shard's
+    device.
+
+    'approach1' / 'approach2': the stream is cut into `plan.dp_size()`
+    contiguous pieces, piece d runs the compute pattern on shard d's
+    device with the factors copied there, and the partial outputs are
+    reduced (`dist.collective.reduce_partials`).  Pass sorted_by_mode=True
+    only when every piece is sorted by the output mode (a stream sorted
+    before the cut is).
+
+    'pallas': the planned route (`make_sharded_planned_mttkrp`): the
+    host-side `st` and `rank` are required, the stream is partitioned into
+    balanced output-tile ranges with one plan per shard; the callable
+    ignores its stream arguments, since each shard's layout already lives
+    on its device."""
+    from ..dist.collective import reduce_partials
+
+    if method == "pallas":
+        if st is None or rank is None:
+            raise ValueError("mttkrp_sharded(method='pallas') needs the host-side stream: pass "
+                             "st=<SparseTensor> and rank=<int> (the partitioner runs on host numpy)")
+        from ..kernels.ops import make_sharded_planned_mttkrp  # kernels build on core
+
+        op = make_sharded_planned_mttkrp(st, mode, rank, dist=plan, cfg=cfg)
+
+        def call_planned(indices, values, factors):
+            del indices, values  # the shards' layouts live on their devices
+            return op.output(factors, out_rows)
+
+        return call_planned
+    if method not in ("approach1", "approach2"):
+        raise ValueError(f"unknown method {method!r}")
+    devices = plan.devices
+
+    def call(indices, values, factors):
+        parts = []
+        for dev, idx, val in zip(devices, torch.tensor_split(indices, len(devices)),
+                                 torch.tensor_split(values, len(devices))):
+            parts.append(mttkrp(idx.to(dev), val.to(dev), [f.to(dev) for f in factors], mode,
+                                out_rows, method=method, sorted_by_mode=sorted_by_mode))
+        return reduce_partials(parts)
+
+    return call

@@ -85,8 +85,12 @@ Seven things differ on purpose, because the kernels differ:
      number of slots (`scripts/torch_pms_probe.py`, "NVIDIA H100 80GB HBM3,
      700.00 W").
 
-The sharded half (`predict_sharded`, `search_sharded`) waits for the
-distribution slice.
+The sharded half (`predict_sharded`, `search_sharded`) prices each shard
+of `dist.sharding.partition_stream`'s split alone, with the same model, and
+scores a configuration by its slowest shard: the reference's makespan.  On
+one card the port runs its shards one after another, so a sharded sweep
+there takes about the sum of its shards; the makespan is what a machine
+with a card per shard would wait for, and what ranks the configurations.
 """
 from __future__ import annotations
 
@@ -126,6 +130,9 @@ __all__ = [
     "predict_tt_analytic",
     "resolve_spec",
     "search",
+    "ShardedPMSEstimate",
+    "predict_sharded",
+    "search_sharded",
     "DEFAULT_TILE_CHOICES",
     "DEFAULT_BLK_CHOICES",
 ]
@@ -182,13 +189,14 @@ def resolve_spec(spec) -> GPUSpec:
     return _tune_resolve(spec)
 
 
-def _count_configs(kernel: str, n: int) -> None:
+def _count_configs(kernel: str, n: int, sharded: bool = False) -> None:
     """Count the configurations a search priced (``pms.configs_evaluated``):
     zero on a warm autotune-cache hit."""
     from ..obs import metrics as _metrics
 
-    _metrics.counter("pms.configs_evaluated", kernel=kernel, sharded="false").inc(n)
-    _metrics.counter("pms.searches", kernel=kernel, sharded="false").inc()
+    label = "true" if sharded else "false"
+    _metrics.counter("pms.configs_evaluated", kernel=kernel, sharded=label).inc(n)
+    _metrics.counter("pms.searches", kernel=kernel, sharded=label).inc()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -483,5 +491,155 @@ def search(
         else:
             results.append(_analytic(model, hs, mode, cfg, spec))
     _count_configs(kernel, len(results))
+    results.sort(key=lambda e: e.t_total)
+    return results[:top_k]
+
+
+# ---------------------------------------------------------------------------
+# The sharded PMS: a configuration scored by its worst shard
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPMSEstimate:
+    """One configuration of the sharded planned path: the stream split as
+    `make_sharded_planned_*` splits it, each shard priced alone.  `t_total`
+    is the makespan, the slowest shard's time (the reference's semantics):
+    with a card per shard the shards run at once.  On one card the port
+    runs them one after another, where a sweep takes about the sum
+    (`t_sum`).  The reduction's copies and adds are the same for every
+    configuration at one rank and are not priced."""
+
+    cfg: MemoryControllerConfig
+    per_shard: tuple[PMSEstimate, ...]
+    shard_nnz: tuple[int, ...]
+
+    @property
+    def nshards(self) -> int:
+        return len(self.per_shard)
+
+    @property
+    def t_total(self) -> float:
+        """The makespan: the slowest shard's time."""
+        return max(e.t_total for e in self.per_shard)
+
+    @property
+    def t_sum(self) -> float:
+        """The shards' times added: one card running them in turn."""
+        return sum(e.t_total for e in self.per_shard)
+
+    @property
+    def critical_shard(self) -> int:
+        """The shard that sets the makespan."""
+        ts = [e.t_total for e in self.per_shard]
+        return ts.index(max(ts))
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory per CTA (one configuration: every shard's)."""
+        return self.per_shard[0].smem_bytes
+
+    @property
+    def imbalance(self) -> float:
+        """max / mean shard nnz."""
+        from ..dist.sharding import stream_imbalance
+
+        return stream_imbalance(self.shard_nnz)
+
+    @property
+    def bottleneck(self) -> str:
+        return self.per_shard[self.critical_shard].bottleneck
+
+
+def _empty_shard_estimate(model: _KernelModel, cfg: MemoryControllerConfig,
+                          spec: GPUSpec) -> PMSEstimate:
+    """A shard that owns no non-zero: its one all-padding block costs
+    nothing against any real shard."""
+    launch = model.launch(cfg, spec)
+    return PMSEstimate(cfg=cfg, t_stream=0.0, t_factor=0.0, t_out=0.0, t_compute=0.0,
+                       smem_bytes=launch.smem_bytes, nblocks=0, padding_fraction=0.0,
+                       row_parts=launch.row_parts, col_slices=launch.col_slices,
+                       occupancy=launch.occupancy, step_share=launch.step_share)
+
+
+def _shard_estimate(model: _KernelModel, shard: SparseTensor, hs: HypergraphStats | None,
+                    mode: int, cfg: MemoryControllerConfig, spec: GPUSpec, exact: bool,
+                    device) -> PMSEstimate:
+    if shard.nnz == 0:
+        return _empty_shard_estimate(model, cfg, spec)
+    if exact:
+        plan = plan_blocks(shard, mode, tile_i=cfg.cache.tile_i, blk=cfg.dma.blk,
+                           in_tiles=cfg.cache.input_tiles(shard.nmodes - 1), device=device)
+        return _from_plan(model, plan, cfg, spec)
+    return _analytic(model, hs if hs is not None else hg_stats(shard), mode, cfg, spec)
+
+
+def predict_sharded(
+    st: SparseTensor,
+    mode: int,
+    rank: int,
+    nshards: int,
+    cfg: MemoryControllerConfig,
+    *,
+    spec: GPUSpec | str = GPUSpec(),
+    kernel: str = "mttkrp",
+    core_ranks: Sequence[int] | None = None,
+    exact: bool = True,
+    device: str | torch.device | None = None,
+) -> ShardedPMSEstimate:
+    """The PMS terms of one configuration on the sharded path: the stream
+    partitioned as `make_sharded_planned_*` partitions it (balanced nnz,
+    tile_i-aligned), each shard priced alone; exact=True builds each
+    shard's plan on `device` (CUDA unless given), exact=False takes the
+    occupancy model per shard.  `kernel` / `core_ranks` as in `search`."""
+    from ..dist.sharding import partition_stream
+
+    spec = resolve_spec(spec)
+    model = _kernel_model(kernel, rank, core_ranks, st.nmodes, mode)
+    dev = resolve_device(device) if exact else None
+    part = partition_stream(st, mode, nshards, tile=cfg.cache.tile_i)
+    ests = tuple(_shard_estimate(model, sh, None, mode, cfg, spec, exact, dev)
+                 for sh in part.shards)
+    return ShardedPMSEstimate(cfg=cfg, per_shard=ests, shard_nnz=part.shard_nnz)
+
+
+def search_sharded(
+    st: SparseTensor,
+    mode: int,
+    rank: int,
+    nshards: int,
+    *,
+    spec: GPUSpec | str = GPUSpec(),
+    tile_choices: Sequence[int] = DEFAULT_TILE_CHOICES,
+    blk_choices: Sequence[int] = DEFAULT_BLK_CHOICES,
+    exact: bool = False,
+    top_k: int = 5,
+    kernel: str = "mttkrp",
+    core_ranks: Sequence[int] | None = None,
+    device: str | torch.device | None = None,
+) -> list[ShardedPMSEstimate]:
+    """`search` on the sharded path: every configuration whose kernel fits
+    shared memory, ranked by its worst shard (a configuration that wins on
+    the average shard can lose on the critical one).  The partition and
+    each shard's statistics are computed once per tile_i, which is all the
+    split depends on."""
+    from ..dist.sharding import partition_stream
+
+    spec = resolve_spec(spec)
+    model = _kernel_model(kernel, rank, core_ranks, st.nmodes, mode)
+    dev = resolve_device(device) if exact else None
+    parts: dict[int, tuple] = {}  # tile_i -> (partition, per-shard stats)
+    results: list[ShardedPMSEstimate] = []
+    for cfg in _feasible_configs(model, spec, tile_choices, blk_choices):
+        ti = cfg.cache.tile_i
+        if ti not in parts:
+            part = partition_stream(st, mode, nshards, tile=ti)
+            parts[ti] = (part, [hg_stats(sh) if sh.nnz and not exact else None
+                                for sh in part.shards])
+        part, sstats = parts[ti]
+        ests = tuple(_shard_estimate(model, sh, hs, mode, cfg, spec, exact, dev)
+                     for sh, hs in zip(part.shards, sstats))
+        results.append(ShardedPMSEstimate(cfg=cfg, per_shard=ests, shard_nnz=part.shard_nnz))
+    _count_configs(kernel, len(results), sharded=True)
     results.sort(key=lambda e: e.t_total)
     return results[:top_k]

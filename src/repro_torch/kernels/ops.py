@@ -11,8 +11,18 @@ iteration (the plan/remap cost is amortized over the decomposition).  Every
 (core/pms.py) pick each mode's configuration for its kernel.
 `mttkrp_auto` / `tucker_auto` / `tt_auto` compute one mode's MTTKRP, TTM
 chain or TT-core right-hand side in one call, their plans kept in a shared
-LRU cache keyed by the tensor's content (`plan_cache_stats`).  No sharding
-yet.
+LRU cache keyed by the tensor's content (`plan_cache_stats`).
+
+The sharded planned path (counterpart of the reference's sharded half,
+driven through `repro_torch.dist.planned`): `partition_stream` splits the
+stream per output mode into balanced, tile-aligned ranges, each shard gets
+its own BlockPlan on its own device (`_ShardStack`), and a call launches
+the same kernel once per shard and joins the partial outputs with one
+reduction (`dist.collective.reduce_partials`, the reference's `psum`).
+The shards are not padded to one block count and stacked, as the
+reference's are for `shard_map`: each keeps its own plan.
+`ShardedPlannedMTTKRP` is one mode, `ShardedPlannedCPALS` the CP-ALS loop;
+the Tucker and TT workspaces live beside their single-device ones.
 """
 from __future__ import annotations
 
@@ -25,22 +35,25 @@ from typing import Callable, Sequence
 import torch
 
 from ..core.coo import SparseTensor, to_device
-from ..core.cp_als import _update_mode, fit_value
+from ..core.cp_als import _fit_from, _update_mode, fit_value, inner_with_model, model_norm_sq
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.mttkrp import mttkrp as mttkrp_stream
 from ..core.mttkrp import mttkrp_approach1
 from ..core.pms import predict_from_plan
 from ..core.pms import resolve_spec as pms_resolve_spec
 from ..core.pms import search as pms_search
+from ..core.pms import search_sharded as pms_search_sharded
 from ..core.remap import BlockPlan, plan_blocks, plans_validated, validate_plan
 from ..device import resolve_device
+from ..dist.collective import Replicas, reduce_partials
+from ..dist.sharding import ShardingPlan, StreamPartition, partition_stream, shard_cut_points
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
 from .ref import ttcore_ref, ttmc_ref
 from .tt import tt_out_cols, tt_out_pair, ttcore_blocked
 from .ttm import kron_cols, ttmc_blocked
-from .workspace import PlannedWorkspace
+from .workspace import PlannedWorkspace, ShardedWorkspace
 
 __all__ = [
     "PlannedMTTKRP",
@@ -51,6 +64,10 @@ __all__ = [
     "make_planned_ttcore",
     "PlannedCPALS",
     "make_planned_cp_als",
+    "ShardedPlannedMTTKRP",
+    "make_sharded_planned_mttkrp",
+    "ShardedPlannedCPALS",
+    "make_sharded_planned_cp_als",
     "mttkrp_auto",
     "plan_cache_clear",
     "plan_cache_config",
@@ -109,28 +126,36 @@ def _resolve_tune(auto_tune, spec) -> tuple[bool | str, GPUSpec]:
 
 
 def _searched_cfg(auto_tune, kind: str, st: SparseTensor, mode: int, rank_key,
-                  spec: GPUSpec) -> MemoryControllerConfig:
+                  spec: GPUSpec, *, nshards: int | None = None) -> MemoryControllerConfig:
     """The analytic PMS search's winner for one mode of kernel `kind` at
     `rank_key` (the CP rank, TTMc's N core ranks or TT's N-1 bond ranks):
     searched on every call for auto_tune=True; for "cached", the persisted
-    winner of this (kind, tensor, mode, rank payload, backend, spec),
-    searched and written back only on a miss.  Raises where no
-    configuration fits the kernel's shared memory."""
+    winner of this (kind, tensor, mode, rank payload, backend, spec,
+    shards), searched and written back only on a miss.  With `nshards` the
+    sharded search ranks by the worst shard (`pms.search_sharded`): a
+    2-shard winner is not a 4-shard winner.  Raises where no configuration
+    fits the kernel's shared memory."""
 
     def search():
         rank, core_ranks = (rank_key, None) if kind == "mttkrp" else (0, rank_key)
-        best = pms_search(st, mode, rank, spec=spec, top_k=1, kernel=kind, core_ranks=core_ranks)
+        if nshards is None:
+            best = pms_search(st, mode, rank, spec=spec, top_k=1, kernel=kind,
+                              core_ranks=core_ranks)
+        else:
+            best = pms_search_sharded(st, mode, rank, nshards, spec=spec, top_k=1, kernel=kind,
+                                      core_ranks=core_ranks)
         if not best:
+            over = "" if nshards is None else f" over {nshards} shards"
             raise ValueError(
                 f"PMS found no controller configuration whose {kind} kernel fits "
-                f"shared memory for mode {mode} at ranks {rank_key!r} (spec budget "
+                f"shared memory for mode {mode}{over} at ranks {rank_key!r} (spec budget "
                 f"{spec.smem_per_block} bytes per CTA)")
         return best[0].cfg
 
     if auto_tune == "cached":
         from ..tune.cache import cached_config  # deferred: tune -> ops
 
-        return cached_config(kind, st.fingerprint(), mode, rank_key, spec, search)
+        return cached_config(kind, st.fingerprint(), mode, rank_key, spec, search, nshards=nshards)
     return search()
 
 
@@ -473,14 +498,21 @@ def plan_cache_clear() -> None:
 
 
 def _planned_cached(kind: str, st: SparseTensor, mode: int, rank_key,
-                    cfg: MemoryControllerConfig | None, device: torch.device, build: Callable):
+                    cfg: MemoryControllerConfig | None, device: torch.device, build: Callable,
+                    *, shard: tuple[int, int] | None = None):
     """LRU-cached op keyed by (kernel kind, the tensor's content
-    fingerprint, mode, rank key, controller config, device): a repeated
-    call stops paying for the Tensor Remapper.  The kind keeps MTTKRP, TTMc
-    and TT-core ops of one tensor, mode and rank apart.  With
-    REPRO_VALIDATE_PLANS set, a hit validates the cached plan again.  Traced
-    as a `plan_cache_hit` event or a `plan_cache_build` span."""
-    key = (kind, st.fingerprint(), mode, rank_key, cfg or MemoryControllerConfig(), device)
+    fingerprint, mode, rank key, controller config, device, shard): a
+    repeated call stops paying for the Tensor Remapper.  The kind keeps
+    MTTKRP, TTMc and TT-core ops of one tensor, mode and rank apart.
+    `shard` entries, a (shard index, shard count) pair, are raw BlockPlans,
+    which depend on no kernel or rank: their keys take the kind "layout"
+    (the callers pass the rank key "layout"), so the sharded CP, Tucker and
+    TT workspaces of one tensor and config share them, while the hits and
+    misses are counted under the caller's kind.  With REPRO_VALIDATE_PLANS
+    set, a hit validates the cached plan again.  Traced as a
+    `plan_cache_hit` event or a `plan_cache_build` span."""
+    key = ("layout" if shard is not None else kind, st.fingerprint(), mode, rank_key,
+           cfg or MemoryControllerConfig(), device, shard)
     stats = _PLAN_CACHE_STATS[kind]
     t0 = time.perf_counter()
     op = _PLAN_CACHE.get(key)
@@ -488,7 +520,7 @@ def _planned_cached(kind: str, st: SparseTensor, mode: int, rank_key,
         stats["hits"] += 1
         _PLAN_CACHE.move_to_end(key)
         if plans_validated():
-            validate_plan(op.plan)
+            validate_plan(op if isinstance(op, BlockPlan) else op.plan)
         _metrics.counter("plan_cache.hits", kind=kind).inc()
         _metrics.histogram("plan_cache.hit_seconds", kind=kind).observe(time.perf_counter() - t0)
         _trace.event("plan_cache_hit", kind=kind, mode=mode)
@@ -601,3 +633,304 @@ def tt_auto(
         raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
     idx, val = to_device(st, device)
     return ttcore_ref(idx, val, cores, mode, st.shape[mode])
+
+
+# ---------------------------------------------------------------------------
+# The sharded planned path: per-shard plans, one launch per shard, one
+# reduction per mode
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _ShardStack:
+    """One output mode's shard layouts: `plans[d]` is the BlockPlan of shard
+    d's slice of the stream, on shard d's device, built for its own block
+    count.  The reference pads every shard to the widest block count and
+    stacks them, because `shard_map` needs one shape; here each shard keeps
+    its own plan and its own launch.  Every plan has the same geometry
+    (global shape, tile sizes and row padding), so the shards' outputs add
+    up to the mode's whole output."""
+
+    plans: tuple[BlockPlan, ...]
+    tile_bounds: tuple[int, ...]
+
+    def _geom(self) -> BlockPlan:
+        return self.plans[0]
+
+    nshards = property(lambda self: len(self.plans))
+    mode = property(lambda self: self._geom().mode)
+    in_modes = property(lambda self: self._geom().in_modes)
+    n_in = property(lambda self: self._geom().n_in)
+    tile_i = property(lambda self: self._geom().tile_i)
+    in_tiles = property(lambda self: self._geom().in_tiles)
+    blk = property(lambda self: self._geom().blk)
+    out_rows = property(lambda self: self._geom().out_rows)
+    in_rows = property(lambda self: self._geom().in_rows)
+
+    @property
+    def shard_nblocks(self) -> tuple[int, ...]:
+        return tuple(p.nblocks for p in self.plans)
+
+    @property
+    def shard_nnz(self) -> tuple[int, ...]:
+        return tuple(p.nnz for p in self.plans)
+
+
+def _empty_shard_plan(shape: tuple[int, ...], mode: int, cfg: MemoryControllerConfig,
+                      device: torch.device) -> BlockPlan:
+    """The layout of a shard that owns no non-zero (where nnz or the output
+    tile count is smaller than the shard count): one zero-value block on
+    tile 0, which adds exactly zero.  The reference's, on `device`."""
+    nmodes = len(shape)
+    in_modes = tuple(m for m in range(nmodes) if m != mode)
+    in_tiles = cfg.cache.input_tiles(len(in_modes))
+    blk, tile_i = cfg.dma.blk, cfg.cache.tile_i
+
+    def zeros(n: int, dtype=torch.int32) -> torch.Tensor:
+        return torch.zeros((n,), dtype=dtype, device=device)
+
+    return BlockPlan(
+        vals=zeros(blk, torch.float32),
+        iloc=zeros(blk),
+        in_locs=tuple(zeros(blk) for _ in in_modes),
+        block_it=zeros(1),
+        block_in=tuple(zeros(1) for _ in in_modes),
+        tile_i=tile_i,
+        in_tiles=in_tiles,
+        blk=blk,
+        out_rows=-(-shape[mode] // tile_i) * tile_i,
+        in_rows=tuple(-(-shape[m] // t) * t for m, t in zip(in_modes, in_tiles)),
+        mode=mode,
+        in_modes=in_modes,
+        nnz=0,
+    )
+
+
+def _sharded_mode_stack(st: SparseTensor, mode: int, cfg: MemoryControllerConfig,
+                        dist: ShardingPlan, kind: str) -> tuple[StreamPartition | None, _ShardStack]:
+    """Partition the stream for one output mode and build each shard's plan
+    on its device.  The plans go through the shared plan cache under
+    shard-aware keys (`_planned_cached(shard=(d, nshards))`), so a rebuild
+    for the same tensor and config, at any rank and for any format, skips
+    the Tensor Remapper.  The key holds the whole tensor's fingerprint
+    where the reference hashes each shard: the shard is a function of the
+    tensor, the mode, the shard count and tile_i (in the config).  So the
+    cache is looked up from the cut points alone, and the shards are copied
+    out of the stream only where a plan is built.  Traced as a
+    `shard_stack` span; records the shards' block imbalance in
+    `sharded.block_imbalance{kind}`.  Returns (the partition, or None where
+    every plan was cached, and the stack)."""
+    nshards, tile = dist.dp_size(), cfg.cache.tile_i
+    part = None
+
+    def shard(d: int) -> SparseTensor:
+        nonlocal part
+        if part is None:
+            part = partition_stream(st, mode, nshards, tile=tile)
+        return part.shards[d]
+
+    with _trace.span("shard_stack", kind=kind, mode=mode, nshards=nshards):
+        bounds, shard_nnz = shard_cut_points(st, mode, nshards, tile=tile)
+        plans = []
+        for d, (nnz, dev) in enumerate(zip(shard_nnz, dist.devices)):
+            if nnz == 0:
+                plans.append(_empty_shard_plan(st.shape, mode, cfg, dev))
+                continue
+            plans.append(_planned_cached(kind, st, mode, "layout", cfg, dev,
+                                         lambda d=d, dev=dev: _plan(shard(d), mode, cfg, dev),
+                                         shard=(d, nshards)))
+        stack = _ShardStack(plans=tuple(plans), tile_bounds=bounds)
+    nblocks = [max(1, b) for b in stack.shard_nblocks]
+    _metrics.histogram("sharded.block_imbalance", kind=kind).observe(
+        max(nblocks) * len(nblocks) / sum(nblocks))
+    return part, stack
+
+
+def _fit_streams(st: SparseTensor, part: StreamPartition | None, dist: ShardingPlan,
+                 tile: int) -> tuple[tuple[torch.Tensor, torch.Tensor], ...]:
+    """Each shard's slice of mode 0's partition of the raw stream, on its
+    device, for the fits that walk the non-zeros (the counterpart of the
+    reference's `_stack_fit_stream`, unpadded).  `part`: mode 0's partition
+    where the plan build made it."""
+    if part is None:
+        part = partition_stream(st, 0, dist.dp_size(), tile=tile)
+    return tuple(to_device(sh, dev) for sh, dev in zip(part.shards, dist.devices))
+
+
+def _stack_call(stack: _ShardStack, kernel: Callable, reps: Replicas, *extra) -> list[torch.Tensor]:
+    """One launch of `kernel` (`mttkrp_blocked`, `ttmc_blocked` or
+    `ttcore_blocked`, with its `extra` arguments) per shard, on the shard's
+    plan and the input factors on its device (`reps`, indexed by mode): the
+    shards' partial outputs, for `reduce_partials`.  The counterpart of the
+    reference's `_stack_mttkrp_call` / `_stack_ttmc_call` /
+    `_stack_ttcore_call`.  The reference multiplies each shard's
+    output by its visited-row mask (`_apply_row_mask`), because the Pallas
+    kernel leaves the tiles no block visits undefined; the port's wrappers
+    allocate their output zeroed, so those rows are already exact zeros
+    and no mask is needed."""
+    outs = []
+    for p in stack.plans:
+        facs = reps.on(p.device)
+        outs.append(kernel(p, [facs[im][: p.in_rows[n]] for n, im in enumerate(p.in_modes)], *extra))
+    return outs
+
+
+def _tuned_cfg(st: SparseTensor, mode: int, rank_key, nshards: int,
+               cfg: MemoryControllerConfig | None, auto_tune, spec,
+               kernel: str = "mttkrp") -> MemoryControllerConfig:
+    """One mode's configuration on the sharded path: with auto_tune, the
+    sharded PMS's pick, ranked by the worst shard (kept on disk under the
+    shard count for "cached"); else `cfg`, else the default.  `rank_key`:
+    the CP rank, TTMc's N core ranks or TT's N-1 bond ranks."""
+    auto_tune, spec = _resolve_tune(auto_tune, spec)
+    if auto_tune:
+        return _searched_cfg(auto_tune, kernel, st, mode, rank_key, spec, nshards=nshards)
+    return cfg or MemoryControllerConfig()
+
+
+def _resolve_dist(dist, devices) -> ShardingPlan:
+    """The sharded path's placement: `dist` where given (raising where
+    `devices` is given too and names other devices), else
+    `shard_plan(devices)`."""
+    from ..dist.planned import shard_plan  # deferred: dist.planned -> ops
+
+    if dist is None:
+        return shard_plan(devices)
+    if not isinstance(dist, ShardingPlan):
+        raise ValueError(f"dist must be a ShardingPlan (see repro_torch.dist.planned.shard_plan), "
+                         f"got {type(dist).__name__}")
+    if devices is not None:
+        same = (devices == dist.dp_size() if isinstance(devices, int)
+                else tuple(resolve_device(d) for d in devices) == dist.devices)
+        if not same:
+            raise ValueError(f"both dist (devices {[str(d) for d in dist.devices]}) and "
+                             f"devices={devices!r} were passed and they disagree")
+    return dist
+
+
+@dataclasses.dataclass
+class ShardedPlannedMTTKRP:
+    """One (tensor, mode) MTTKRP over a ShardingPlan: the stream split into
+    balanced, tile-aligned output ranges, each shard's plan on its own
+    device; a call launches the MTTKRP kernel once per shard and reduces
+    the partial outputs onto the first shard's device."""
+
+    stack: _ShardStack
+    dist: ShardingPlan
+    rank: int
+    cfg: MemoryControllerConfig = dataclasses.field(default_factory=MemoryControllerConfig)
+
+    def __call__(self, *in_factors: torch.Tensor) -> torch.Tensor:
+        """True-shape factors of the N-1 input modes (stack.in_modes order),
+        on any device.  Returns (stack.out_rows, rank) on the first shard's
+        device."""
+        s = self.stack
+        if len(in_factors) != s.n_in:
+            raise ValueError(f"{len(in_factors)} factors for {s.n_in} input modes")
+        home, rp = self.dist.devices[0], rank_padded(self.rank)
+        facs = [None] * (s.n_in + 1)  # by mode; the output mode's is not read
+        for f, rows, im in zip(in_factors, s.in_rows, s.in_modes):
+            facs[im] = pad_factor(f.to(home), rows, rp)
+        reps = Replicas(facs, self.dist.devices)
+        return reduce_partials(_stack_call(s, mttkrp_blocked, reps))[:, : self.rank]
+
+    def output(self, factors: Sequence[torch.Tensor], true_rows: int) -> torch.Tensor:
+        """The mode's MTTKRP from ALL N factors (the output mode's is
+        ignored), cut to the mode's true rows."""
+        return self(*(factors[m] for m in self.stack.in_modes))[:true_rows]
+
+
+def make_sharded_planned_mttkrp(
+    st: SparseTensor,
+    mode: int,
+    rank: int,
+    *,
+    dist: ShardingPlan | None = None,
+    devices=None,
+    cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
+) -> ShardedPlannedMTTKRP:
+    """Build one output mode's sharded layout: on `dist`, or on
+    `shard_plan(devices)` (an int: the first D CUDA devices; a sequence of
+    devices, repeats allowed).  With auto_tune the sharded PMS picks the
+    configuration by its worst shard before the plans are built."""
+    dist = _resolve_dist(dist, devices)
+    cfg = _tuned_cfg(st, mode, rank, dist.dp_size(), cfg, auto_tune, spec)
+    _, stack = _sharded_mode_stack(st, mode, cfg, dist, "mttkrp")
+    return ShardedPlannedMTTKRP(stack=stack, dist=dist, rank=rank, cfg=cfg)
+
+
+@dataclasses.dataclass
+class ShardedPlannedCPALS(ShardedWorkspace):
+    """The CP-ALS loop on the sharded planned path: one `_ShardStack` per
+    output mode, each mode partitioned by its own output coordinate.  Per
+    mode a sweep launches the MTTKRP kernel once per shard, reduces the
+    partial outputs onto the first shard's device, updates the factor there
+    (gram, solve, normalize) and copies it to the other shards' devices.
+    The fit adds each shard's inner product with the model over its slice
+    of mode 0's partition (`fit_streams`)."""
+
+    stacks: dict[int, _ShardStack]
+    dist: ShardingPlan
+    shape: tuple[int, ...]
+    rank: int
+    cfgs: dict[int, MemoryControllerConfig]
+    fit_streams: tuple[tuple[torch.Tensor, torch.Tensor], ...]
+
+    @property
+    def lane_ranks(self) -> tuple[int, ...]:
+        return (self.rank,) * self.nmodes
+
+    @property
+    def rank_pad(self) -> int:
+        return rank_padded(self.rank)
+
+    def sweep(self, facs, norm_x_sq, *, first: bool = False):
+        """One ALS iteration in padded space: `PlannedCPALS.sweep` without
+        the stream arguments (each shard's slice lives on its device).  Each
+        mode's new factor is written in place into `facs` (on the first
+        shard's device) and then copied to the other devices.  Returns
+        (padded factors, lam, fit)."""
+        shape, rank = self.shape, self.rank
+        facs = tuple(facs)
+        reps = Replicas(facs, self.dist.devices)
+        lam = None
+        for m in range(self.nmodes):
+            mt = reduce_partials(_stack_call(self.stacks[m], mttkrp_blocked, reps))[: shape[m], :rank]
+            true = [f[:s, :rank] for f, s in zip(facs, shape)]
+            true, lam = _update_mode(mt, true, m, first)
+            facs[m][: shape[m], :rank] = true[m]
+            reps.refresh(m)
+        true = [f[:s, :rank] for f, s in zip(facs, shape)]
+        inner = reduce_partials([
+            inner_with_model(idx, val, [f[:s, :rank] for f, s in zip(reps.on(idx.device), shape)],
+                             lam.to(idx.device))
+            for idx, val in self.fit_streams])
+        return facs, lam, _fit_from(norm_x_sq, model_norm_sq(true, lam), inner)
+
+
+def make_sharded_planned_cp_als(
+    st: SparseTensor,
+    rank: int,
+    *,
+    dist: ShardingPlan | None = None,
+    devices=None,
+    cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
+) -> ShardedPlannedCPALS:
+    """Build the sharded ALS workspace: one partition and shard stack per
+    output mode, on `dist` or `shard_plan(devices)` (see
+    `make_sharded_planned_mttkrp`); with auto_tune each mode's
+    configuration is the sharded PMS's pick."""
+    dist = _resolve_dist(dist, devices)
+    stacks, cfgs = {}, {}
+    part0 = None
+    for m in range(st.nmodes):
+        cfgs[m] = _tuned_cfg(st, m, rank, dist.dp_size(), cfg, auto_tune, spec)
+        part, stacks[m] = _sharded_mode_stack(st, m, cfgs[m], dist, "mttkrp")
+        if m == 0:
+            part0 = part
+    return ShardedPlannedCPALS(stacks=stacks, dist=dist, shape=st.shape, rank=rank, cfgs=cfgs,
+                               fit_streams=_fit_streams(st, part0, dist, cfgs[0].cache.tile_i))

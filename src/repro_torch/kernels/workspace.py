@@ -14,7 +14,9 @@ does that is not format-specific.  Counterpart of the single-device half of
     PMS-predicted sweep time while a tracer is active) and recorded in the
     `drive.*` metrics; with the resilience surface: numerical guards
     (`GuardConfig`: raise, restart from jittered factors, or fall back to
-    the format's plain reference sweep) and checkpoint/resume.
+    the format's plain reference sweep) and checkpoint/resume;
+  * `ShardedWorkspace`, the same protocol over per-mode shard stacks
+    (`sharded_layout_bytes`), for the sharded planned path.
 
 The port's sweeps write each mode's new factor in place into the padded
 tensors they are given, where the reference's return new arrays.  So the
@@ -36,7 +38,8 @@ from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .mttkrp import pad_factor, rank_padded
 
-__all__ = ["PlannedWorkspace", "planned_layout_bytes", "plan_stream"]
+__all__ = ["PlannedWorkspace", "ShardedWorkspace", "planned_layout_bytes", "plan_stream",
+           "sharded_layout_bytes"]
 
 
 def plan_stream(plan: BlockPlan) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,16 +58,24 @@ def plan_stream(plan: BlockPlan) -> tuple[torch.Tensor, torch.Tensor]:
     return idx, plan.vals
 
 
+def _plan_layout_bytes(p: BlockPlan, r) -> int:
+    """One plan's bytes at Remapper widths `r`: every slot's value and its N
+    coordinates, and every block's N tile ids."""
+    return (p.vals.shape[0] * (r.value_bytes + (1 + p.n_in) * r.index_bytes)
+            + p.nblocks * (1 + p.n_in) * r.index_bytes)
+
+
 def planned_layout_bytes(ops: dict[int, Any]) -> int:
     """Device memory held by a per-mode plan family's layouts (the paper's
-    'copies' trade, Sec. 3), at each mode's Remapper element widths: every
-    slot's value and its N coordinates, and every block's N tile ids."""
-    total = 0
-    for op in ops.values():
-        p, r = op.plan, op.cfg.remapper
-        total += p.vals.shape[0] * (r.value_bytes + (1 + p.n_in) * r.index_bytes)
-        total += p.nblocks * (1 + p.n_in) * r.index_bytes
-    return total
+    'copies' trade, Sec. 3), at each mode's Remapper element widths."""
+    return sum(_plan_layout_bytes(op.plan, op.cfg.remapper) for op in ops.values())
+
+
+def sharded_layout_bytes(stacks: dict[int, Any], cfgs: dict[int, Any]) -> int:
+    """Device memory held by a per-mode shard-stack family, summed over
+    every shard's own plan.  The shards are not padded to one block count
+    (the reference's are), so this is what is resident."""
+    return sum(_plan_layout_bytes(p, cfgs[m].remapper) for m, s in stacks.items() for p in s.plans)
 
 
 def _factors_finite(facs: Sequence[torch.Tensor]) -> bool:
@@ -370,3 +381,29 @@ class PlannedWorkspace:
         if hook is None:
             return None
         return float(sum(e.t_total for e in hook().values()))
+
+
+class ShardedWorkspace(PlannedWorkspace):
+    """Base of the sharded planned workspaces (`repro_torch.dist.planned`):
+    the `PlannedWorkspace` protocol over per-mode shard stacks, where shard
+    d of mode m's stack holds the plan of shard d's slice of the stream, on
+    its own device.  Subclasses carry `stacks`, `dist` (a `ShardingPlan`)
+    and `cfgs`.  The factors live on the first shard's device (`device`),
+    where each mode's reduced output updates them.  `drive`, the guards
+    and the checkpoints are the base's; there is no reference sweep over
+    shard stacks, so the "fallback" policy escalates to
+    `DecompositionDiverged`, as in the reference."""
+
+    @property
+    def nshards(self) -> int:
+        return self.dist.dp_size()
+
+    @property
+    def device(self) -> torch.device:
+        return self.dist.devices[0]
+
+    def _geoms(self) -> dict[int, Any]:
+        return self.stacks
+
+    def _layout_bytes(self) -> int:
+        return sharded_layout_bytes(self.stacks, self.cfgs)

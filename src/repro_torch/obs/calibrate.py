@@ -31,11 +31,12 @@ __all__ = [
 def pms_estimates(ws: Any, spec=None) -> dict:
     """Per-mode exact PMS estimates of a planned workspace, through its
     `pms_estimates` hook (PlannedCPALS / PlannedTucker / PlannedTT).
-    Raises TypeError for a workspace without the hook."""
+    Raises TypeError for a workspace without the hook, a sharded one among
+    them (its shards are priced by `core.pms.predict_sharded`)."""
     hook = getattr(ws, "pms_estimates", None)
     if hook is None:
         raise TypeError(f"{type(ws).__name__} exposes no pms_estimates() hook; "
-                        f"calibration needs a planned workspace")
+                        f"calibration needs a single-device planned workspace")
     return hook(spec) if spec is not None else hook()
 
 

@@ -11,9 +11,9 @@ check detection and recovery:
   * `shrunk_budget`: a device-memory budget just under a workspace's
     footprint (the admission ladder steps down);
   * `kill_at`: the process dies before iteration k (checkpoint/resume, in
-    a subprocess).
-
-The reference's `deaden_shard` waits for the distribution slice.
+    a subprocess);
+  * `deaden_shard`: one shard of a sharded workspace contributes nothing
+    after iteration k (caught by the regression guard).
 
 The iteration-indexed injectors fire once: a restart replays iterations
 from 0, and a fault that fired on every attempt would exhaust any
@@ -29,7 +29,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["inject_nan_factor", "corrupt_plan", "shrunk_budget", "kill_at"]
+__all__ = ["inject_nan_factor", "corrupt_plan", "shrunk_budget", "deaden_shard", "kill_at"]
 
 
 def inject_nan_factor(ws: Any, *, at_iter: int, mode: int | None = None) -> Any:
@@ -75,6 +75,34 @@ def shrunk_budget(ws: Any, fraction: float = 0.5) -> int:
 
     total = admission_bytes(ws)["total_bytes"]
     return min(int(total * fraction), total - 1)
+
+
+def deaden_shard(ws: Any, *, shard: int, at_iter: int) -> Any:
+    """Arm a sharded workspace so shard `shard`'s plans hold only zero
+    values after the sweep of iteration `at_iter`: a silently dead device.
+    Every later sweep loses that shard's part of each reduced output while
+    the fit is still taken against the whole tensor, so the fit falls and
+    the regression guard fires.  The dead plans replace the shard's plans
+    in the workspace's stacks (the cached plans are untouched) and stay
+    dead: a restart cannot revive them, so pair this with policy="raise"."""
+    if not hasattr(ws, "stacks"):
+        raise ValueError("deaden_shard needs a sharded workspace (no .stacks)")
+    inner = ws._sweep_call
+    state = {"fired": False}
+
+    def wrapped(facs, *args, it: int):
+        out = inner(facs, *args, it=it)
+        if it == at_iter and not state["fired"]:
+            state["fired"] = True
+            for stack in ws.stacks.values():
+                plans = list(stack.plans)
+                plans[shard] = dataclasses.replace(plans[shard],
+                                                   vals=torch.zeros_like(plans[shard].vals))
+                stack.plans = tuple(plans)
+        return out
+
+    ws._sweep_call = wrapped
+    return ws
 
 
 def kill_at(ws: Any, *, at_iter: int, exit_code: int = 17) -> Any:

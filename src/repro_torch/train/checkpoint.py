@@ -13,10 +13,11 @@ Layout: ``<dir>/step_<n>/``
   * **Async**: `save(..., blocking=False)` copies the leaves to host
     memory at once and writes them on a daemon thread (at most one
     outstanding save).
-  * **Restore onto a device**: `restore(step, device=...)` returns the
-    leaves as tensors on `device` (the CPU by default).  The reference's
-    `shardings=` (an elastic restore onto another mesh) waits for the
-    distribution slice.
+  * **Restore onto devices**: `restore(step, device=...)` returns the
+    leaves as tensors on `device` (the CPU by default); `restore(step,
+    shardings=...)`, the elastic restore, takes a tree of devices of the
+    saved tree's structure and puts each leaf on its device, whatever
+    devices saved it (the reference's tree of shardings).
 
 Leaves are torch tensors (`.detach().cpu().numpy()`), numpy arrays or
 Python scalars.  The tree's structure, nested dicts (string or integer
@@ -144,17 +145,32 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None,
-                device: str | torch.device | None = None) -> tuple[int, Any]:
+    def restore(self, step: int | None = None, device: str | torch.device | None = None,
+                shardings: Any = None) -> tuple[int, Any]:
         """Load step `step` (the latest by default) with every leaf a tensor
-        on `device` (the CPU unless given).  Returns (step, tree)."""
+        on `device` (the CPU unless given), or, with `shardings` (a tree of
+        devices of the saved tree's structure), each leaf on its own
+        device.  Raises ValueError where `shardings` has another structure
+        (a misaligned tree would put leaves on the wrong devices) or is
+        passed with `device`.  Returns (step, tree)."""
+        if shardings is not None and device is not None:
+            raise ValueError("pass device= or shardings=, not both")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             meta = json.load(f)
-        dev = torch.device(device) if device is not None else torch.device("cpu")
+        if shardings is not None:
+            devs: list = []
+            structure = json.loads(json.dumps(_flatten(shardings, devs)))
+            if structure != meta["tree"]:
+                raise ValueError(
+                    f"checkpoint step {step} tree structure does not match the requested "
+                    f"shardings ({meta['nleaves']} saved leaves vs {len(devs)})")
+            devs = [torch.device(x) for x in devs]
+        else:
+            devs = [torch.device(device) if device is not None else torch.device("cpu")] * meta["nleaves"]
         leaves = [torch.from_numpy(np.load(os.path.join(d, f"arr_{i}.npy"))).to(dev)
-                  for i in range(meta["nleaves"])]
+                  for i, dev in enumerate(devs)]
         return step, _unflatten(meta["tree"], leaves)

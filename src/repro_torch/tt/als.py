@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..core.coo import SparseTensor, norm_sq, to_device
+from ..core.cp_als import _fit_from
 from ..core.loop import (
     check_drive_extras,
     check_planned_method,
@@ -46,16 +47,29 @@ from ..core.loop import (
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.pms import predict_tt
 from ..device import resolve_device
-from ..kernels.ops import PlannedTTCore, _tt_bond_pairs, make_planned_ttcore
+from ..dist.collective import Replicas, reduce_partials
+from ..kernels.ops import (
+    PlannedTTCore,
+    _fit_streams,
+    _resolve_dist,
+    _ShardStack,
+    _sharded_mode_stack,
+    _stack_call,
+    _tt_bond_pairs,
+    _tuned_cfg,
+    make_planned_ttcore,
+)
 from ..kernels.ref import ttcore_ref
 from ..kernels.tt import chain_left, ttcore_blocked
-from ..kernels.workspace import PlannedWorkspace
+from ..kernels.workspace import PlannedWorkspace, ShardedWorkspace
 
 __all__ = [
     "TTState",
     "tt_als",
     "PlannedTT",
     "make_planned_tt",
+    "ShardedPlannedTT",
+    "make_sharded_planned_tt",
     "init_tt_cores",
     "tt_svd",
     "core_to_matrix",
@@ -247,11 +261,6 @@ def tt_norm_sq(cores: Sequence[torch.Tensor]) -> torch.Tensor:
     return p[0, 0]
 
 
-def _fit_from(norm_x_sq: torch.Tensor, model_sq: torch.Tensor, inner: torch.Tensor) -> torch.Tensor:
-    resid_sq = torch.clamp(norm_x_sq + model_sq - 2.0 * inner, min=0.0)
-    return 1.0 - torch.sqrt(resid_sq) / torch.sqrt(norm_x_sq)
-
-
 def tt_fit_value(indices: torch.Tensor, values: torch.Tensor, cores: Sequence[torch.Tensor],
                  norm_x_sq: torch.Tensor) -> torch.Tensor:
     """fit = 1 - ||X - TT|| / ||X||, expanded as ||X||^2 + ||TT||^2 -
@@ -366,6 +375,88 @@ def make_planned_tt(
     return PlannedTT(ops=ops, shape=st.shape, tt_ranks=tr)
 
 
+@dataclasses.dataclass
+class ShardedPlannedTT(ShardedWorkspace):
+    """The TT-ALS loop on the sharded planned path: the TT-core mirror of
+    `ShardedPlannedCPALS` (the same partitions and shard stacks, the TT-core
+    kernel once per shard, one reduction per mode into B_m, the
+    normal-equations solve on the first shard's device and the new
+    interface matrix copied to the others).  The fit adds each shard's
+    <X, TT> over its slice of mode 0's partition (`fit_streams`);
+    ||TT||^2 is the completed left-interface chain."""
+
+    stacks: dict
+    dist: object  # ShardingPlan
+    shape: tuple[int, ...]
+    tt_ranks: tuple[int, ...]  # N-1 interior bond ranks
+    cfgs: dict
+    fit_streams: tuple
+
+    @property
+    def bond_pairs(self) -> tuple[tuple[int, int], ...]:
+        return _tt_bond_pairs(self.tt_ranks, self.nmodes)
+
+    @property
+    def lane_ranks(self) -> tuple[int, ...]:
+        return tuple(a * b for a, b in self.bond_pairs)
+
+    def in_rank_pairs(self, mode: int) -> tuple[tuple[int, int], ...]:
+        pairs = self.bond_pairs
+        return tuple(pairs[im] for im in self.stacks[mode].in_modes)
+
+    def sweep(self, facs, norm_x_sq, *, first: bool = False):
+        """One TT-ALS iteration in padded space: `PlannedTT.sweep` with each
+        mode's TT-core kernel launched once per shard and reduced, and the
+        fit's inner product over the shards' slices.  Returns (padded
+        matrices, None, fit)."""
+        shape, pairs, lr = self.shape, self.bond_pairs, self.lane_ranks
+        facs = tuple(facs)
+        reps = Replicas(facs, self.dist.devices)
+        cores = [matrix_to_core(f[:s, :w], *pr) for f, s, w, pr in zip(facs, shape, lr, pairs)]
+        qs = _q_suffix(cores)
+        p = torch.ones((1, 1), dtype=torch.float32, device=facs[0].device)
+        for m in range(self.nmodes):
+            b = reduce_partials(_stack_call(self.stacks[m], ttcore_blocked, reps,
+                                             self.in_rank_pairs(m), m))
+            facs[m][: shape[m], : lr[m]] = _solve_core(torch.kron(p, qs[m]), b[: shape[m], : lr[m]])
+            reps.refresh(m)
+            cores[m] = matrix_to_core(facs[m][: shape[m], : lr[m]], *pairs[m])
+            p = _p_next(p, cores[m])
+        inner = reduce_partials([
+            tt_inner(idx, val, [matrix_to_core(f[:s, :w], *pr)
+                                for f, s, w, pr in zip(reps.on(idx.device), shape, lr, pairs)])
+            for idx, val in self.fit_streams])
+        return facs, None, _fit_from(norm_x_sq, p[0, 0], inner)
+
+
+def make_sharded_planned_tt(
+    st: SparseTensor,
+    tt_ranks: int | Sequence[int],
+    *,
+    dist=None,
+    devices=None,
+    cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
+) -> ShardedPlannedTT:
+    """Build the sharded TT-ALS workspace: one partition and shard stack per
+    output mode, on `dist` or `shard_plan(devices)`; with auto_tune each
+    mode's configuration is the sharded PMS's pick for the TT-core
+    kernel."""
+    tr = _validated_tt_ranks(st, tt_ranks)
+    dist = _resolve_dist(dist, devices)
+    stacks: dict[int, _ShardStack] = {}
+    cfgs: dict[int, MemoryControllerConfig] = {}
+    part0 = None
+    for m in range(st.nmodes):
+        cfgs[m] = _tuned_cfg(st, m, tr, dist.dp_size(), cfg, auto_tune, spec, kernel="tt")
+        part, stacks[m] = _sharded_mode_stack(st, m, cfgs[m], dist, "tt")
+        if m == 0:
+            part0 = part
+    return ShardedPlannedTT(stacks=stacks, dist=dist, shape=st.shape, tt_ranks=tr, cfgs=cfgs,
+                            fit_streams=_fit_streams(st, part0, dist, cfgs[0].cache.tile_i))
+
+
 def _initial_cores(st: SparseTensor, tr: tuple[int, ...], init: str, init_cores, seed: int,
                    device: torch.device) -> list[torch.Tensor]:
     if init not in ("auto", "svd", "random"):
@@ -398,6 +489,8 @@ def tt_als(
     spec: GPUSpec | str = "default",
     cfg: MemoryControllerConfig | None = None,
     device: str | torch.device | None = None,
+    devices=None,
+    dist=None,
     verbose: bool = False,
     guards=None,
     checkpoint_every: int | None = None,
@@ -409,7 +502,9 @@ def tt_als(
     method: 'pallas' (the name the reference gives its planned path): a
       `PlannedTT` workspace is built once (one device-resident BlockPlan per
       output mode) and every right-hand side runs through the TT-core
-      kernel; 'reference' — `ttcore_ref` on the raw COO stream.
+      kernel; 'pallas_sharded': the sharded planned path
+      (`make_sharded_planned_tt`, placed by `devices=` / `dist=` as in
+      `cp_als`); 'reference' — `ttcore_ref` on the raw COO stream.
     init: 'svd' — the deterministic TT-SVD warm start (densifies; guarded to
       2^22 elements), the same cores as the reference's; 'random' —
       left-orthogonal random cores from a torch generator seeded with
@@ -418,25 +513,46 @@ def tt_als(
     init_cores: one (rl_m, I_m, rr_m) array or tensor per mode (e.g. the
       reference's `init_tt_cores`), in place of `init`.
     planned: a prebuilt `PlannedTT` (`make_planned_tt`, which also takes the
-      plan geometry) to reuse its plans across calls.
+      plan geometry), or `ShardedPlannedTT` for 'pallas_sharded', to reuse
+      its plans across calls.
     auto_tune / spec / cfg: the workspace's plan geometry when `planned` is
       not given: `cfg` for every mode, or the PMS's pick per mode for the
       TT-core kernel (auto_tune=True; "cached" keeps the winners on disk).
     device: CUDA unless the caller passes one (raises if no GPU is present).
     guards / checkpoint_every / checkpoint_path: the planned drive loop's
       resilience surface (`repro_torch.resilience`; see `cp_als`).
-      method='pallas' only.
+      The planned paths only.
     """
     tr = _validated_tt_ranks(st, tt_ranks)
-    if method not in ("pallas", "reference"):
-        raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
-    device = resolve_device(device)
-    check_planned_method(method, planned)
+    if method not in ("pallas", "pallas_sharded", "reference"):
+        raise ValueError(f"unknown method {method!r}: expected 'pallas', 'pallas_sharded' or "
+                         f"'reference'")
+    check_planned_method(method, planned, devices, dist)
     check_drive_extras(method, guards, checkpoint_every, checkpoint_path)
-    if planned is not None:
-        check_workspace(planned, PlannedTT, {"shape": st.shape, "tt_ranks": tr}, device)
-    cores = _initial_cores(st, tr, init, init_cores, seed, device)
     pairs = _tt_bond_pairs(tr, st.nmodes)
+    if method == "pallas_sharded":
+        if device is not None:
+            raise ValueError("method='pallas_sharded' places its shards by devices=/dist=; "
+                             "device= would be silently ignored")
+        if planned is None:
+            planned = make_sharded_planned_tt(st, tr, dist=dist, devices=devices, cfg=cfg,
+                                              auto_tune=auto_tune, spec=spec)
+        else:
+            check_workspace(planned, ShardedPlannedTT, {"shape": st.shape, "tt_ranks": tr},
+                            method=method, devices=devices, dist=dist)
+        cores = _initial_cores(st, tr, init, init_cores, seed, planned.device)
+        norm_x_sq = torch.tensor(norm_sq(st), dtype=torch.float32, device=planned.device)
+        mats, _, fits = planned.drive(
+            [core_to_matrix(c) for c in cores], (norm_x_sq,), iters=iters, tol=tol,
+            verbose=verbose, label="tt_als",
+            guards=guards, checkpoint_every=checkpoint_every, checkpoint_path=checkpoint_path)
+        return TTState(cores=[matrix_to_core(w, *pr).contiguous() for w, pr in zip(mats, pairs)],
+                       fit_history=fits)
+    device = resolve_device(device)
+    if planned is not None:
+        check_workspace(planned, PlannedTT, {"shape": st.shape, "tt_ranks": tr}, device,
+                        method=method)
+    cores = _initial_cores(st, tr, init, init_cores, seed, device)
     if method == "pallas" and planned is None:
         planned = make_planned_tt(st, tr, cfg=cfg, auto_tune=auto_tune, spec=spec, device=device)
     # The stream moves to the device after the plan build, whose

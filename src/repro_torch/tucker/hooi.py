@@ -39,16 +39,27 @@ from ..core.loop import (
 from ..core.memctrl import GPUSpec, MemoryControllerConfig
 from ..core.pms import predict_ttmc
 from ..device import resolve_device
-from ..kernels.ops import PlannedTTMC, make_planned_ttmc
+from ..dist.collective import Replicas, reduce_partials
+from ..kernels.ops import (
+    PlannedTTMC,
+    _resolve_dist,
+    _ShardStack,
+    _sharded_mode_stack,
+    _stack_call,
+    _tuned_cfg,
+    make_planned_ttmc,
+)
 from ..kernels.ref import ttmc_ref
-from ..kernels.ttm import ttmc_blocked
-from ..kernels.workspace import PlannedWorkspace, plan_stream
+from ..kernels.ttm import kron_cols, ttmc_blocked
+from ..kernels.workspace import PlannedWorkspace, ShardedWorkspace, plan_stream
 
 __all__ = [
     "TuckerState",
     "tucker_hooi",
     "PlannedTucker",
     "make_planned_tucker",
+    "ShardedPlannedTucker",
+    "make_sharded_planned_tucker",
     "init_tucker_factors",
     "core_fit_value",
 ]
@@ -230,6 +241,69 @@ def make_planned_tucker(
     return PlannedTucker(ops=ops, shape=st.shape, core_ranks=cr)
 
 
+@dataclasses.dataclass
+class ShardedPlannedTucker(ShardedWorkspace):
+    """The HOOI loop on the sharded planned path: the TTM-chain mirror of
+    `ShardedPlannedCPALS` (the same partitions and shard stacks, the TTMc
+    kernel once per shard, one reduction per mode, the factor updated on
+    the first shard's device and copied to the others).  The fit needs no
+    stream: the core comes from the last mode's reduced unfolding."""
+
+    stacks: dict
+    dist: object  # ShardingPlan
+    shape: tuple[int, ...]
+    core_ranks: tuple[int, ...]
+    cfgs: dict
+
+    @property
+    def lane_ranks(self) -> tuple[int, ...]:
+        return self.core_ranks
+
+    def in_ranks(self, mode: int) -> tuple[int, ...]:
+        return tuple(self.core_ranks[im] for im in self.stacks[mode].in_modes)
+
+    def sweep(self, facs, norm_x_sq, *, first: bool = False):
+        """One HOOI iteration in padded space: `PlannedTucker.sweep` with
+        each mode's TTMc launched once per shard and reduced.  Returns
+        (padded factors, core, fit)."""
+        shape, cr = self.shape, self.core_ranks
+        facs = tuple(facs)
+        reps = Replicas(facs, self.dist.devices)
+        y = None
+        for m in range(self.nmodes):
+            in_ranks = self.in_ranks(m)
+            y = reduce_partials(_stack_call(self.stacks[m], ttmc_blocked, reps, in_ranks))
+            y = y[: shape[m], : kron_cols(in_ranks)]
+            facs[m][: shape[m], : cr[m]] = _factor_from_unfolding(y, cr[m])
+            reps.refresh(m)
+        last = self.nmodes - 1
+        core = _core_from_unfolding(y, facs[last][: shape[last], : cr[last]], last, cr)
+        return facs, core, core_fit_value(core, norm_x_sq)
+
+
+def make_sharded_planned_tucker(
+    st: SparseTensor,
+    core_ranks: Sequence[int],
+    *,
+    dist=None,
+    devices=None,
+    cfg: MemoryControllerConfig | None = None,
+    auto_tune: bool | str = False,
+    spec: GPUSpec | str = GPUSpec(),
+) -> ShardedPlannedTucker:
+    """Build the sharded HOOI workspace: one partition and shard stack per
+    output mode, on `dist` or `shard_plan(devices)`; with auto_tune each
+    mode's configuration is the sharded PMS's pick for the TTMc kernel."""
+    cr = _validated_core_ranks(st, core_ranks)
+    dist = _resolve_dist(dist, devices)
+    stacks: dict[int, _ShardStack] = {}
+    cfgs: dict[int, MemoryControllerConfig] = {}
+    for m in range(st.nmodes):
+        cfgs[m] = _tuned_cfg(st, m, cr, dist.dp_size(), cfg, auto_tune, spec, kernel="ttmc")
+        _, stacks[m] = _sharded_mode_stack(st, m, cfgs[m], dist, "ttmc")
+    return ShardedPlannedTucker(stacks=stacks, dist=dist, shape=st.shape, core_ranks=cr, cfgs=cfgs)
+
+
 def tucker_hooi(
     st: SparseTensor,
     core_ranks: Sequence[int],
@@ -244,6 +318,8 @@ def tucker_hooi(
     spec: GPUSpec | str = "default",
     cfg: MemoryControllerConfig | None = None,
     device: str | torch.device | None = None,
+    devices=None,
+    dist=None,
     verbose: bool = False,
     guards=None,
     checkpoint_every: int | None = None,
@@ -254,36 +330,53 @@ def tucker_hooi(
     method: 'pallas' (the name the reference gives its planned path): a
       `PlannedTucker` workspace is built once (one device-resident BlockPlan
       per output mode) and every TTMc runs through the TTMc kernel;
-      'reference' — `ttmc_ref` on the raw COO stream.
+      'pallas_sharded': the sharded planned path
+      (`make_sharded_planned_tucker`, placed by `devices=` / `dist=` as in
+      `cp_als`); 'reference' — `ttmc_ref` on the raw COO stream.
     init_factors: one (I_m, R_m) orthonormal array or tensor per mode.
       Without it `init_tucker_factors` draws them from a torch generator
       seeded with `seed`; these numbers differ from the reference's
       `jax.random` draws for the same seed.
     planned: a prebuilt `PlannedTucker` (`make_planned_tucker`, which also
-      takes the plan geometry) to reuse its plans across calls.
+      takes the plan geometry), or `ShardedPlannedTucker` for
+      'pallas_sharded', to reuse its plans across calls.
     auto_tune / spec / cfg: the workspace's plan geometry when `planned` is
       not given: `cfg` for every mode, or the PMS's pick per mode for the
       TTMc kernel (auto_tune=True; "cached" keeps the winners on disk).
     device: CUDA unless the caller passes one (raises if no GPU is present).
     guards / checkpoint_every / checkpoint_path: the planned drive loop's
       resilience surface (`repro_torch.resilience`; see `cp_als`).
-      method='pallas' only.
+      The planned paths only.
     """
     cr = _validated_core_ranks(st, core_ranks)
-    if method not in ("pallas", "reference"):
-        raise ValueError(f"unknown method {method!r}: expected 'pallas' or 'reference'")
-    device = resolve_device(device)
-    check_planned_method(method, planned)
+    if method not in ("pallas", "pallas_sharded", "reference"):
+        raise ValueError(f"unknown method {method!r}: expected 'pallas', 'pallas_sharded' or "
+                         f"'reference'")
+    check_planned_method(method, planned, devices, dist)
     check_drive_extras(method, guards, checkpoint_every, checkpoint_path)
-    if planned is not None:
-        check_workspace(planned, PlannedTucker, {"shape": st.shape, "core_ranks": cr}, device)
+    if method == "pallas_sharded":
+        if device is not None:
+            raise ValueError("method='pallas_sharded' places its shards by devices=/dist=; "
+                             "device= would be silently ignored")
+        if planned is None:
+            planned = make_sharded_planned_tucker(st, cr, dist=dist, devices=devices, cfg=cfg,
+                                                  auto_tune=auto_tune, spec=spec)
+        else:
+            check_workspace(planned, ShardedPlannedTucker, {"shape": st.shape, "core_ranks": cr},
+                            method=method, devices=devices, dist=dist)
+        device = planned.device
+    else:
+        device = resolve_device(device)
+        if planned is not None:
+            check_workspace(planned, PlannedTucker, {"shape": st.shape, "core_ranks": cr}, device,
+                            method=method)
     if init_factors is None:
         factors = init_tucker_factors(st.shape, cr, seed=seed, device=device)
     else:
         factors = given_factors(init_factors, list(zip(st.shape, cr)), device)
     norm_x_sq = torch.tensor(norm_sq(st), dtype=torch.float32, device=device)
 
-    if method == "pallas":
+    if method in ("pallas", "pallas_sharded"):
         if planned is None:
             planned = make_planned_tucker(st, cr, cfg=cfg, auto_tune=auto_tune, spec=spec,
                                           device=device)

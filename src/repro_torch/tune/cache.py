@@ -276,16 +276,19 @@ def cached_config(
     search_thunk,
     *,
     cache: AutotuneCache | None = None,
+    nshards: int | None = None,
 ) -> MemoryControllerConfig:
     """The `auto_tune="cached"` lookup each `make_planned_*` makes: return the
     persisted winning configuration for this key, or run `search_thunk` (the
     full PMS sweep), persist its winner, and return it.  A hit skips the
     config sweep entirely — counted in ``autotune_cache.hits`` with zero
     ``pms.configs_evaluated`` increments; a miss counts one
-    ``autotune_cache.misses`` and writes back."""
+    ``autotune_cache.misses`` and writes back.  `nshards`: the sharded
+    path's shard count, part of the key (None for one device)."""
     cache = cache if cache is not None else default_cache()
     backend = current_backend()
-    key = config_key(kind, fingerprint, mode, rank_key, backend=backend, spec=spec)
+    key = config_key(kind, fingerprint, mode, rank_key, backend=backend, spec=spec,
+                     nshards=nshards)
     cfg = cache.get_config(key)
     if cfg is not None:
         AutotuneCache._count("hits", kind=kind)

@@ -1,8 +1,9 @@
 """The port's checkpoint manager (`repro_torch.train.checkpoint`), case for
 case with tests/test_checkpoint.py: round trip, atomicity, keep-last-k,
-the asynchronous save, a given step, a missing directory; the reference's
-elastic restore with `shardings=` waits for the distribution slice, so its
-case here restores onto a given device.  Then parity with
+the asynchronous save, a given step, a missing directory; here the
+reference's elastic restore case restores onto a given device (its
+`shardings=` counterpart is tested in tests/test_torch_sharded.py).  Then
+parity with
 `repro.train.checkpoint`: the same tree gives the same leaf files, in the
 same order, and the manifest holds the tree's structure as JSON."""
 import json

@@ -146,6 +146,8 @@ def test_bad_arguments_raise(tiny_tensor):
         with pytest.raises(ValueError, match=match):
             decompose(st, RANK, iters=1, device="cpu", **kw)
     with pytest.raises(ValueError, match="unknown method"):
+        cp_als(st, RANK, iters=1, method="pallas_mesh", device="cpu")
+    with pytest.raises(ValueError, match="devices=/dist="):
         cp_als(st, RANK, iters=1, method="pallas_sharded", device="cpu")
     with pytest.raises(ValueError, match="silently ignored"):
         cp_als(st, RANK, iters=1, planned=ws, mttkrp_fn=ws.mttkrp_fn, device="cpu")

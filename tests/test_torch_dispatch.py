@@ -230,4 +230,6 @@ def test_decompose_method(tiny_tensor):
     assert a.fit_history == b.fit_history
     for fmt, rank in (("cp", 3), ("tucker", 3), ("tt", 3)):
         with pytest.raises(ValueError, match="unknown method"):
+            decompose(st, rank, format=fmt, method="pallas_mesh", iters=1, device="cpu")
+        with pytest.raises(ValueError, match="devices=/dist="):
             decompose(st, rank, format=fmt, method="pallas_sharded", iters=1, device="cpu")

@@ -574,3 +574,100 @@ def test_plan_with_budget_on_the_card(cuda):
     before = mttkrp_blocked.launches
     out = decompose(st, 16, iters=2, hbm_budget=ref + 1, device=cuda)
     assert mttkrp_blocked.launches == before and len(out.fit_history) == 2
+
+
+# The sharded planned path on the card: D shards on the one card, and one
+# shard on the card beside one on the CPU (the only way a one-card machine
+# moves partial outputs and factors between devices).
+SHARD_RANKS = {"cp": 8, "tucker": (3, 5, 2), "tt": (3, 5)}
+
+
+@pytest.mark.parametrize("nshards", [2, 4])
+@pytest.mark.parametrize("preset", ["tiny", "4d_small"])
+def test_sharded_kernels_on_one_card(cuda, preset, nshards):
+    """Each kernel once per shard, reduced, against its plain version in
+    float64 on the single-device plan: one launch per shard and mode."""
+    from repro_torch.dist import Replicas, reduce_partials
+    from repro_torch.dist.planned import (make_sharded_planned_cp_als, make_sharded_planned_tt,
+                                          make_sharded_planned_tucker, shard_plan)
+    from repro_torch.kernels.ops import _stack_call
+
+    st = frostt_like(preset)
+    dist = shard_plan(["cuda:0"] * nshards)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    core_ranks, tt_ranks = (3,) * st.nmodes, (3,) * (st.nmodes - 1)
+    cases = [
+        (make_planned_cp_als(st, 16, device=cuda), make_sharded_planned_cp_als(st, 16, dist=dist),
+         mttkrp_blocked, mttkrp_blocked_plain, lambda ws, m: ()),
+        (make_planned_tucker(st, core_ranks, device=cuda),
+         make_sharded_planned_tucker(st, core_ranks, dist=dist), ttmc_blocked, ttmc_blocked_plain,
+         lambda ws, m: (ws.in_ranks(m),)),
+        (make_planned_tt(st, tt_ranks, device=cuda), make_sharded_planned_tt(st, tt_ranks, dist=dist),
+         ttcore_blocked, ttcore_blocked_plain, lambda ws, m: (ws.in_rank_pairs(m), m)),
+    ]
+    for single, ws, kernel, plain, extra in cases:
+        true = [torch.randn((s, w), generator=gen, device=cuda) for s, w in zip(st.shape, ws.lane_ranks)]
+        facs = single.pad_factors(true)
+        reps = Replicas(facs, dist.devices)
+        before = kernel.launches
+        for m in range(st.nmodes):
+            plan = single.plan_for(m)
+            in_facs = [facs[im][: plan.in_rows[n]].double() for n, im in enumerate(plan.in_modes)]
+            want = plain(dataclasses.replace(plan, vals=plan.vals.double()), in_facs, *extra(ws, m))
+            got = reduce_partials(_stack_call(ws.stacks[m], kernel, reps, *extra(ws, m)))
+            assert_cols_within(got, want, ws.lane_ranks[m]
+                               if kernel is not ttmc_blocked else math.prod(ws.in_ranks(m)))
+        assert kernel.launches == before + nshards * st.nmodes
+
+
+@pytest.mark.parametrize("nshards", [2, 4])
+@pytest.mark.parametrize("fmt", ["cp", "tucker", "tt"])
+def test_sharded_decompose_on_one_card(cuda, fmt, nshards):
+    """decompose(method="pallas_sharded") with D shards on cuda:0 against the
+    single-device run on the card from the same initial factors: fits
+    within 1e-5 over 3 iterations, D x modes x iterations launches."""
+    from repro_torch.dist.planned import shard_plan
+
+    st = frostt_like("tiny")
+    kernel = {"cp": mttkrp_blocked, "tucker": ttmc_blocked, "tt": ttcore_blocked}[fmt]
+    kw = {"init": "random"} if fmt == "tt" else {}
+    a = decompose(st, SHARD_RANKS[fmt], format=fmt, iters=3, seed=1, device=cuda, **kw)
+    before = kernel.launches
+    b = decompose(st, SHARD_RANKS[fmt], format=fmt, iters=3, seed=1, method="pallas_sharded",
+                  dist=shard_plan(["cuda:0"] * nshards), **kw)
+    assert kernel.launches == before + nshards * st.nmodes * 3
+    assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
+
+
+@pytest.mark.parametrize("fmt", ["cp", "tucker", "tt"])
+def test_sharded_across_the_card_and_the_cpu(cuda, fmt):
+    """Shard 0 on the card, shard 1 on the CPU: partial outputs come to the
+    card and each updated factor goes to the CPU after its write; the fits
+    match the single-device run on the card to 1e-5, and only the card's
+    shard launches a kernel."""
+    from repro_torch.dist.planned import shard_plan
+
+    st = frostt_like("4d_small")
+    rank = {"cp": 8, "tucker": (3, 4, 2, 3), "tt": (3, 4, 2)}[fmt]
+    kernel = {"cp": mttkrp_blocked, "tucker": ttmc_blocked, "tt": ttcore_blocked}[fmt]
+    kw = {"init": "random"} if fmt == "tt" else {}
+    a = decompose(st, rank, format=fmt, iters=3, seed=2, device=cuda, **kw)
+    before = kernel.launches
+    b = decompose(st, rank, format=fmt, iters=3, seed=2, method="pallas_sharded",
+                  dist=shard_plan(["cuda:0", "cpu"]), **kw)
+    assert kernel.launches == before + st.nmodes * 3
+    assert max(abs(x - y) for x, y in zip(a.fit_history, b.fit_history)) <= TOL
+    out = b.factors if fmt != "tt" else b.cores
+    assert all(t.device.type == "cuda" and bool(torch.isfinite(t).all()) for t in out)
+
+
+def test_shard_plan_on_the_card(cuda):
+    """An int names CUDA devices and raises where there are fewer; a
+    sequence may repeat one."""
+    from repro_torch.dist.planned import shard_plan
+
+    n = torch.cuda.device_count()
+    assert shard_plan(1).devices == (torch.device("cuda", 0),)
+    with pytest.raises(ValueError, match="sequence of devices"):
+        shard_plan(n + 1)
+    assert shard_plan(["cuda:0"] * 3).dp_size() == 3

@@ -2,8 +2,8 @@
 `repro_torch.testing.faults`), case for case with tests/test_resilience.py:
 numerical guards in the planned drive loop, plan validation, device-memory
 admission with the ladder, checkpoint/resume of a killed sweep, and the
-bounded plan cache.  The reference's sharded dead-shard case waits for the
-distribution slice.
+bounded plan cache.  The reference's sharded dead-shard case is in
+tests/test_torch_sharded.py.
 
 Then parity with `repro`: GuardState reasons and DecompositionDiverged
 messages for the same fit sequences; `plan_stream`, the layouts' bytes and

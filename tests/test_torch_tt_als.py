@@ -138,6 +138,8 @@ def test_bad_arguments_raise(tiny_tensor):
     with pytest.raises(ValueError, match="unknown method"):
         decompose(st, (3, 3), format="tt", method="approach2", iters=1, device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
+        tt_als(st, (3, 3), iters=1, method="pallas_mesh", device="cpu")
+    with pytest.raises(ValueError, match="devices=/dist="):
         tt_als(st, (3, 3), iters=1, method="pallas_sharded", device="cpu")
     with pytest.raises(ValueError, match="expected 'auto', 'svd' or 'random'"):
         tt_als(st, (3, 3), iters=1, init="qr", device="cpu")

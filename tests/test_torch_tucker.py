@@ -122,6 +122,8 @@ def test_validates_core_ranks(tiny_tensor):
     with pytest.raises(ValueError, match="unknown method"):
         decompose(st, (4, 4, 4), format="tucker", method="approach1", iters=1, device="cpu")
     with pytest.raises(ValueError, match="unknown method"):
+        tucker_hooi(st, (4, 4, 4), iters=1, method="pallas_mesh", device="cpu")
+    with pytest.raises(ValueError, match="devices=/dist="):
         tucker_hooi(st, (4, 4, 4), iters=1, method="pallas_sharded", device="cpu")
     with pytest.raises(ValueError, match="initial factor 2"):
         tucker_hooi(st, (4, 4, 4), iters=1, device="cpu",
