@@ -6,7 +6,8 @@ Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card, runs CP-ALS, Tucker HOOI and
 TT-ALS at NELL-2's published size (12,092 x 9,184 x 28,818, 76,879,419 non-zeros,
 synthetic stand-in with seed 0 and zipf skew 1.1) through
-`repro_torch.api.decompose`, and measures the kernels.  Phases, each
+`repro_torch.api.decompose`, and measures the kernels; then serves the LM
+stack's models at full width (phase n).  Phases, each
 printing one JSON line:
 
   a  device   the card (nvidia-smi name and power limit), CUDA version
@@ -113,6 +114,22 @@ printing one JSON line:
               mttkrp_sharded(method="approach1") on mode 0 against float64;
               search_sharded for D = 4 (its pick, host seconds); the plan
               cache cleared at the end
+  n  serving  the LM stack's serving path, which reaches none of the
+              kernels above (their counters stay 0): qwen3-0.6b as
+              configured (28 layers, d 1,024, vocabulary 151,936, float32
+              weights, bfloat16 compute) through launch.serve.serve, batch
+              8, prompt 512, 64 new tokens, seed 0, after a warm-up run
+              (prefill and decode ms and tok/s, peak device memory, the
+              first continuation ids; prefills and decode steps profiled:
+              kernels per call, device ms, the device's idle share, the top
+              kernels); its float32 re-run, decode after prefill within 1e-3
+              of the largest |logit| of a prefill over the longer prompt;
+              every other family at full width, cut in depth (phi3.5-moe 1
+              layer, in both dispatch modes with the same drops, jamba 8,
+              llama-3.2-vision 5, grok-1 1; mamba2-370m and whisper-large-v3
+              whole): a prefill of 4 x 256 and 16 decode steps after a
+              warm-up, finite float32 logits, ms, peak memory, the decode
+              step profiled
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -165,7 +182,12 @@ from repro_torch.core.memctrl import (  # noqa: E402
     GPUSpec,
     MemoryControllerConfig,
 )
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import moe as lm_moe  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
+from repro_torch.models.layers import norm_apply  # noqa: E402
 from repro_torch.kernels.mttkrp import mttkrp_blocked, mttkrp_blocked_plain, rank_padded  # noqa: E402
 from repro_torch.kernels.ops import (  # noqa: E402
     _stack_call,
@@ -384,6 +406,27 @@ SHARD_COUNTS = (2, 4)
 SHARD_ITERS = 3
 SHARD_TURNS = ("single", "sharded", "sharded", "single")
 SHARD_SEARCH_D = 4
+# Phase n: the LM stack's serving path.  The main path: qwen3-0.6b as
+# configured (28 layers, d 1,024, vocabulary 151,936, float32 weights,
+# bfloat16 compute), batch 8, prompt 512, 64 new tokens, seed 0, after one
+# warm-up run of SERVE_WARMUP_TOKENS.  Its float32 re-run holds decode after
+# prefill to a prefill over the longer prompt within TOL_DECODE of the
+# largest |logit|.  Every other family at full width, its depth cut to the
+# layers named (None: whole), a prefill of FAMILY_BATCH x FAMILY_PROMPT and
+# FAMILY_DECODE_STEPS decode steps.
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_SEED = 8, 512, 64, 0
+SERVE_WARMUP_TOKENS = 4
+TOL_DECODE = 1e-3
+FAMILY_LAYERS = {"phi3.5-moe-42b-a6.6b": 1, "jamba-v0.1-52b": 8, "llama-3.2-vision-11b": 5,
+                 "grok-1-314b": 1, "mamba2-370m": None, "whisper-large-v3": None}
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_DECODE_STEPS = 4, 256, 16
+BOTH_DISPATCH = "phi3.5-moe-42b-a6.6b"  # served once per MoE dispatch mode
+# Prefills and decode steps timed, then as many profiled (torch.profiler):
+# kernels per call, device ms, the device's idle share of the unprofiled
+# host time, the top kernels by device time.
+PROFILE_REPS = 3
+PROFILE_TOP = 8
 
 
 def emit(obj: dict) -> None:
@@ -706,6 +749,8 @@ def main() -> int:
     resilience_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, sweep_ms, gen)
     torch.cuda.empty_cache()
     dist_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen, entries)
+    torch.cuda.empty_cache()
+    serving_phase()
 
     emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
@@ -2079,6 +2124,156 @@ def dist_phase(st, main_fits: dict, gen: torch.Generator, entries: dict) -> None
                                          "t_sum": default.t_sum}},
           "plan_cache_after": plan_cache_stats()["size"],
           "tol_mttkrp": TOL_PRESET, "tol_ttmc_ttcore": TOL_FULL, "tol_fit": TOL_FIT})
+
+
+def served(cfg, batch: int, prompt: int, new: int) -> tuple[dict, dict]:
+    """`launch.serve.serve` on cuda:0 from seed SERVE_SEED, with its peak
+    device memory over what was allocated before; returns (the run, its
+    numbers).  Decode is new - 1 greedy steps."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run = serve(cfg, batch=batch, prompt_len=prompt, new_tokens=new, seed=SERVE_SEED, device="cuda")
+    steps = new - 1
+    logits = run["logits"]
+    check(tuple(run["tokens"].shape) == (batch, new), f"{cfg.name}: tokens {tuple(run['tokens'].shape)}")
+    check(tuple(logits.shape) == (batch, cfg.vocab) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), f"{cfg.name}: last logits not finite float32 (B, V)")
+    check(bool(((run["tokens"] >= 0) & (run["tokens"] < cfg.vocab)).all()), f"{cfg.name}: token ids")
+    return run, {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "compute_dtype": cfg.compute_dtype, "batch": batch, "prompt": prompt, "decode_steps": steps,
+        "prefill_ms": run["prefill_s"] * 1e3, "prefill_tok_s": batch * prompt / run["prefill_s"],
+        "decode_ms_per_step": run["decode_s"] * 1e3 / steps,
+        "decode_tok_s": batch * steps / run["decode_s"],
+        "peak_device_bytes": torch.cuda.max_memory_allocated() - before,
+        "continuation_ids": run["tokens"][0, :12].tolist(),
+    }
+
+
+def decode_consistency(run: dict, cfg) -> float:
+    """Decode of the first greedy token after a prefill over the prompt,
+    against a prefill over the prompt and that token: max |gap| over the
+    largest |logit|."""
+    params, inputs = run["params"], run["inputs"]
+    B, S = inputs["tokens"].shape
+    logits, caches = lm.prefill(params, inputs, cfg, cache_len=S + 1)
+    nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    dec, _ = lm.decode_step(params, nxt, torch.full((B,), S, device=nxt.device), caches, inputs, cfg)
+    want, _ = lm.prefill(params, dict(inputs, tokens=torch.cat([inputs["tokens"], nxt], 1)), cfg)
+    return float((dec - want).abs().max() / want.abs().max())
+
+
+def moe_drops(run: dict, cfg) -> dict:
+    """The first MoE layer's router on its normed input of the prompt's
+    embeddings: both dispatch modes' keep masks (bit for bit) and both
+    modes' layer outputs."""
+    params, tokens = run["params"], run["inputs"]["tokens"]
+    bp = next(b for b in params["blocks"] if "moe" in b)
+    x = lm._embed_tokens(params, tokens, cfg)
+    h = norm_apply(lm._norm_kind(cfg), bp["norm2"], x, cfg.norm_eps)
+    E, C = cfg.moe.num_experts, lm_moe.capacity(tokens.shape[1], cfg.moe)
+    ids, _, _, _ = lm_moe.router_topk(bp["moe"], h, cfg.moe)
+    _, meta = lm_moe.dispatch_remap(h, ids, E, C)
+    _, keep = lm_moe.onehot_slots(ids, E, C)
+    remap_keep = torch.empty_like(meta["keep"]).scatter_(-1, meta["perm"], meta["keep"])
+    check(torch.equal(remap_keep, keep), f"{cfg.name}: remap and onehot drop different assignments")
+    outs = [lm_moe.moe_apply(bp["moe"], h, dataclasses.replace(cfg.moe, dispatch=d), cfg.act)[0].float()
+            for d in ("remap", "onehot")]
+    return {"capacity": C, "assignments": keep.numel(), "dropped": int((~keep).sum()),
+            "keep_masks_equal": True,
+            "remap_vs_onehot_max_rel_gap": float((outs[0] - outs[1]).abs().max() / outs[1].abs().max())}
+
+
+def device_profile(fn, reps: int) -> dict:
+    """`fn` timed `reps` times by the host clock (synchronized), then run
+    `reps` more times under torch.profiler: per call, the host ms, the CUDA
+    kernels launched and their device ms, the device's idle share of the
+    unprofiled host time, and the kernels taking the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    device_ms = sum(sum(v) for v in by_name.values()) / reps
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:PROFILE_TOP]
+    return {"reps": reps, "host_ms": host_ms, "kernels": len(kernels) / reps,
+            "device_ms": device_ms if kernels else None,
+            "device_idle_share": (1 - device_ms / host_ms) if kernels else None,
+            "top": [{"kernel": name[:90], "per_call": len(v) / reps, "ms": sum(v) / reps} for name, v in top]}
+
+
+def serve_profiles(run: dict, cfg) -> dict:
+    """Prefills and decode steps of a served model, PROFILE_REPS of each
+    timed and PROFILE_REPS profiled (`device_profile`)."""
+    params, inputs = run["params"], run["inputs"]
+    B, S = inputs["tokens"].shape
+    state = {}
+
+    def prefill():
+        state["logits"], state["caches"] = lm.prefill(params, inputs, cfg, cache_len=S + 2 * PROFILE_REPS)
+
+    pre = device_profile(prefill, PROFILE_REPS)
+    nxt = torch.argmax(state["logits"], -1).to(torch.int32)[:, None]
+    pos = torch.full((B,), S, device=nxt.device)
+
+    def step():
+        lm.decode_step(params, nxt, pos, state["caches"], inputs, cfg)
+        pos.add_(1)
+
+    return {"prefill": pre, "decode_step": device_profile(step, PROFILE_REPS)}
+
+
+def serving_phase() -> None:
+    """Phase n: the LM stack's serving path on the card (no decomposition
+    kernel on it: the counters stay 0).  qwen3-0.6b at full width and depth
+    through `launch.serve.serve` (a warm-up run, then the measured one),
+    its float32 re-run's decode-after-prefill gap, and every other family
+    at full width with its depth cut."""
+    phase_t0 = time.perf_counter()
+    reset_launches()
+    cfg = get_config(SERVE_ARCH)
+    served(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_WARMUP_TOKENS)
+    run, main_path = served(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW)
+    main_path["profile"] = serve_profiles(run, cfg)
+    del run
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    run, f32 = served(cfg32, SERVE_BATCH, SERVE_PROMPT, SERVE_WARMUP_TOKENS)
+    gap = decode_consistency(run, cfg32)
+    check(gap <= TOL_DECODE, f"{SERVE_ARCH} float32: decode after prefill {gap} > {TOL_DECODE}")
+    del run
+    families = []
+    for arch, layers in FAMILY_LAYERS.items():
+        full = get_config(arch)
+        for mode in (("remap", "onehot") if arch == BOTH_DISPATCH else (None,)):
+            cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+            if mode is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=mode))
+            served(cfg, FAMILY_BATCH, FAMILY_PROMPT, 2)  # warm-up: the first calls' set-up
+            run, row = served(cfg, FAMILY_BATCH, FAMILY_PROMPT, FAMILY_DECODE_STEPS + 1)
+            row.update({"full_n_layers": full.n_layers, "dispatch": mode,
+                        "decode_profile": serve_profiles(run, cfg)["decode_step"]})
+            if mode == "remap":
+                row["moe_drops"] = moe_drops(run, cfg)
+            families.append(row)
+            del run
+    launches = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
+    check(launches == (0, 0, 0), f"the serving path launched decomposition kernels: {launches}")
+    emit({"phase": "n", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "main_path": main_path, "float32_rerun": {**f32, "decode_after_prefill_max_rel_gap": gap,
+                                                    "tol": TOL_DECODE},
+          "families": families, "decomposition_kernel_launches": list(launches)})
 
 
 if __name__ == "__main__":

@@ -20,6 +20,11 @@ tile-aligned shards (`dist/`), one plan per shard on its device, the
 kernels launched once per shard and the partial outputs reduced; the
 shards may share one card (`dist.planned.shard_plan(["cuda:0"] * 4)`).
 
+The LM stack's serving half runs beside them in plain PyTorch (it reaches
+no Pallas kernel of the reference): the ten architectures' configs
+(`configs/`), their models (`models/`), the serve engine (`serve/`) and the
+`launch.serve` driver.
+
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 GPU and no device given they raise instead of falling back to the CPU.
 """

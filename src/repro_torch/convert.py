@@ -19,7 +19,8 @@ from .tt.als import TTState
 from .tucker.hooi import TuckerState
 
 __all__ = ["factors_from_numpy", "cores_from_numpy", "plan_from_numpy", "config_from_reference",
-           "cpstate_to_numpy", "tuckerstate_to_numpy", "ttstate_to_numpy"]
+           "cpstate_to_numpy", "tuckerstate_to_numpy", "ttstate_to_numpy", "params_from_numpy",
+           "caches_from_numpy", "caches_to_numpy"]
 
 #: Fields of the reference's configuration that only its TPU VMEM model
 #: reads (resident factor tiles, double buffering); the port's kernels
@@ -102,3 +103,95 @@ def ttstate_to_numpy(state: TTState) -> dict:
         "cores": [c.detach().cpu().numpy() for c in state.cores],
         "fit_history": [float(x) for x in state.fit_history],
     }
+
+
+# ---------------------------------------------------------------------------
+# The LM stack: parameter trees and decode caches
+# ---------------------------------------------------------------------------
+
+
+def _tensor(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """A numpy leaf as a tensor of `dtype` (default: the leaf's own).
+    bfloat16 leaves (numpy's ml_dtypes) pass through float32, which holds
+    them exactly."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.astype(np.float32), device=device).to(dtype or torch.bfloat16)
+    t = torch.tensor(a, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of every leaf of a nested dict / tuple tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (tuple, list)):
+        for k, v in enumerate(tree):
+            yield from _leaves(v, f"{prefix}{k}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def _unstacked(tree: dict, period: int) -> dict:
+    """The reference's parameter leaves under the port's names: repeat r of
+    decoder position p is layer r * period + p; encoder repeat r is layer r."""
+    out = {}
+    for name, leaf in _leaves(tree):
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            pos, rest = int(parts[1]), ".".join(parts[2:])
+            for r in range(np.shape(leaf)[0]):
+                out[f"blocks.{r * period + pos}.{rest}"] = leaf[r]
+        elif parts[:2] == ["encoder", "blocks"]:
+            rest = ".".join(parts[2:])
+            for r in range(np.shape(leaf)[0]):
+                out[f"encoder.blocks.{r}.{rest}"] = leaf[r]
+        else:
+            out[name] = leaf
+    return out
+
+
+def params_from_numpy(tree: dict, cfg, device: str | torch.device):
+    """The reference's parameter tree as numpy (`jax.tree.map(np.asarray,
+    params)`: blocks a tuple over period positions, leaves stacked over the
+    repeats) as the port's parameters on `device`, layers in depth order.
+    Raises ValueError if the trees hold other leaves or shapes."""
+    from .models.transformer import abstract_params
+
+    params = abstract_params(cfg).to_empty(device=device)
+    named = dict(params.named_parameters())
+    leaves = _unstacked(tree, cfg.period)
+    if set(leaves) != set(named):
+        raise ValueError(f"the reference tree's leaves differ from the port's: only the reference has "
+                         f"{sorted(set(leaves) - set(named))[:4]}, only the port "
+                         f"{sorted(set(named) - set(leaves))[:4]}")
+    with torch.no_grad():
+        for name, p in named.items():
+            if tuple(np.shape(leaves[name])) != tuple(p.shape):
+                raise ValueError(f"{name}: reference shape {np.shape(leaves[name])}, the port's {tuple(p.shape)}")
+            p.copy_(_tensor(leaves[name], device, p.dtype))
+    return params
+
+
+def caches_from_numpy(tree, cfg, device: str | torch.device) -> list[dict]:
+    """The reference's decode caches as numpy (a tuple over period positions
+    of dicts, leaves with a leading n_reps dim) as the port's: one dict per
+    layer in depth order.  Leaves keep their dtype (bfloat16 included)."""
+    period = cfg.period
+    return [{k: _tensor(np.asarray(a)[i // period], device) for k, a in tree[i % period].items()}
+            for i in range(cfg.n_layers)]
+
+
+def caches_to_numpy(caches: Sequence[dict], cfg) -> tuple:
+    """The port's caches in the reference's layout: a tuple over period
+    positions of dicts of numpy arrays stacked over the repeats.  bfloat16
+    leaves come out as float32 (numpy has no bfloat16), exactly."""
+    period = cfg.period
+    out = []
+    for pos in range(period):
+        layers = [caches[i] for i in range(pos, cfg.n_layers, period)]
+        out.append({k: np.stack([(c[k].float() if c[k].dtype == torch.bfloat16 else c[k]).cpu().numpy()
+                                 for c in layers])
+                    for k in layers[0]})
+    return tuple(out)

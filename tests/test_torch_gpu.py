@@ -15,7 +15,10 @@ Tucker and TT on a 6-mode tensor against the CPU path; the resilience
 layer on the card: each kernel at the admission ladder's blocks (64 to 8
 slots) against float64, each format recovering from an injected NaN under
 "restart" and "fallback" (no launch after a fallback), a checkpoint round
-trip on CUDA tensors and a resumed run, and `plan_with_budget` on a preset.
+trip on CUDA tensors and a resumed run, and `plan_with_budget` on a preset;
+the LM stack's serving path: the ten reduced configs' prefill caches and
+logits and four decode steps on the card against the CPU (same weights),
+and the MoE dispatch modes on the card (the same drops, the same outputs).
 Marked `gpu`; they
 skip where torch sees no CUDA device.  Run them on a GPU machine
 (`--noconftest`: the shared conftest imports JAX, which a torch-only
@@ -671,3 +674,83 @@ def test_shard_plan_on_the_card(cuda):
     with pytest.raises(ValueError, match="sequence of devices"):
         shard_plan(n + 1)
     assert shard_plan(["cuda:0"] * 3).dp_size() == 3
+
+
+# ---------------------------------------------------------------------------
+# The LM stack's serving path on the card
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("qwen3-0.6b", "minitron-4b", "phi4-mini-3.8b", "qwen2-1.5b", "phi3.5-moe-42b-a6.6b",
+            "grok-1-314b", "mamba2-370m", "whisper-large-v3", "llama-3.2-vision-11b", "jamba-v0.1-52b")
+# float32 on both devices (TF32 off): every logit and cache leaf within
+# LM_TOL of the largest |value| of the CPU run's tensor.
+LM_TOL = 1e-4
+
+
+def lm_rel_err(got, want) -> float:
+    return float((got.double().cpu() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_serving_on_the_card_matches_the_cpu(cuda, arch):
+    """Each reduced config: the same weights (drawn on the CPU, copied) and
+    inputs; prefill logits and every cache leaf, then 4 decode steps fed
+    the CPU's greedy tokens, on cuda:0 against the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch).reduced()
+    on_cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+    on_gpu = T.init_params(cfg, device="meta").to_empty(device=cuda)
+    on_gpu.load_state_dict(on_cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 16), generator=g, dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=g) * 0.1
+    if cfg.family == "vlm":
+        batch["images"] = torch.randn((2, cfg.img_tokens, cfg.d_model), generator=g) * 0.1
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    lc, cc = T.prefill(on_cpu, batch, cfg, cache_len=21, attn_chunk=8)
+    lg, cg = T.prefill(on_gpu, gbatch, cfg, cache_len=21, attn_chunk=8)
+    assert lm_rel_err(lg, lc) <= LM_TOL
+    for a, b in zip(cg, cc):
+        assert sorted(a) == sorted(b)
+        for k in b:
+            assert lm_rel_err(a[k], b[k]) <= LM_TOL, k
+    pos = torch.full((2,), 16)
+    for _ in range(4):
+        tok = torch.argmax(lc, -1).to(torch.int32)[:, None]
+        lc, cc = T.decode_step(on_cpu, tok, pos, cc, batch, cfg)
+        lg, cg = T.decode_step(on_gpu, tok.to(cuda), pos.to(cuda), cg, gbatch, cfg)
+        assert lm_rel_err(lg, lc) <= LM_TOL
+        pos = pos + 1
+
+
+@pytest.mark.parametrize("cf", [4.0, 1.0, 0.5])
+def test_moe_remap_against_onehot_on_the_card(cuda, cf):
+    """The two dispatch modes on cuda:0: the same assignments drop (bit for
+    bit, and as on the CPU), outputs within 1e-5 of each other and of the
+    CPU's."""
+    from repro_torch.configs import MoEConfig
+    from repro_torch.models import moe as M
+
+    cfg = MoEConfig(num_experts=8, top_k=2, d_ff=96, capacity_factor=cf)
+    p = M.moe_init(64, cfg, "silu", generator=torch.Generator().manual_seed(0), device="cpu")
+    pg = M.moe_init(64, cfg, "silu", generator=None, device="meta").to_empty(device=cuda)
+    pg.load_state_dict(p.state_dict())
+    x = torch.randn((4, 64, 64), generator=torch.Generator().manual_seed(1))
+    E, C = cfg.num_experts, M.capacity(64, cfg)
+    ids, w, _, _ = M.router_topk(pg, x.to(cuda), cfg)
+    ids_cpu, _, _, _ = M.router_topk(p, x, cfg)
+    assert torch.equal(ids.cpu(), ids_cpu)
+    _, meta = M.dispatch_remap(x.to(cuda), ids, E, C)
+    _, keep = M.onehot_slots(ids, E, C)
+    unsorted = torch.empty_like(meta["keep"]).scatter_(-1, meta["perm"], meta["keep"])
+    assert torch.equal(unsorted, keep)
+    assert torch.equal(keep.cpu(), M.onehot_slots(ids_cpu, E, C)[1])
+    outs = {d: M.moe_apply(pg, x.to(cuda), dataclasses.replace(cfg, dispatch=d), "silu")[0]
+            for d in ("remap", "onehot")}
+    want = M.moe_apply(p, x, cfg, "silu")[0]
+    assert lm_rel_err(outs["remap"], outs["onehot"].cpu()) <= TOL
+    assert lm_rel_err(outs["remap"], want) <= TOL

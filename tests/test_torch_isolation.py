@@ -20,6 +20,10 @@ from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import ttmc_blocked
 from repro_torch.tt import make_planned_tt, tt_als, tt_svd
 from repro_torch.tucker import make_planned_tucker, tucker_hooi
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models.transformer import init_params
+from repro_torch.serve.engine import generate
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -48,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.api, repro_torch.convert, repro_torch.kernels.build, "
             "repro_torch.tucker, repro_torch.tt, repro_torch.core.pms, repro_torch.tune, "
             "repro_torch.obs.calibrate, repro_torch.resilience, repro_torch.testing.faults, "
-            "repro_torch.train.checkpoint; "
+            "repro_torch.train.checkpoint, repro_torch.launch.serve, repro_torch.serve.engine, "
+            "repro_torch.configs; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -64,6 +69,8 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
     st = tcoo.frostt_like("tiny")
     facs = [torch.ones((s, 4)) for s in st.shape]
     cores = [torch.ones((a, s, b)) for s, (a, b) in zip(st.shape, ((1, 2), (2, 2), (2, 1)))]
+    lm = get_config("qwen3-0.6b").reduced()
+    lm_params = init_params(lm, device="cpu")
     for call in (lambda: decompose(st, 4),
                  lambda: decompose(st, 4, auto_tune=True),
                  lambda: decompose(st, 4, method="approach1"),
@@ -84,7 +91,10 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
                  lambda: decompose(st, 4, format="tt"),
                  lambda: tt_als(st, (4, 4), method="reference"),
                  lambda: make_planned_tt(st, (4, 4)),
-                 lambda: tt_svd(st, (4, 4))):
+                 lambda: tt_svd(st, (4, 4)),
+                 lambda: init_params(lm),
+                 lambda: generate(lm_params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, lm),
+                 lambda: launch_serve.main(["--arch", "qwen3-0.6b", "--reduced"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert len(decompose(st, 4, iters=1, device="cpu").fit_history) == 1
@@ -95,6 +105,8 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
     assert tucker_auto(st, facs, 0, device="cpu").device.type == "cpu"
     assert tt_auto(st, cores, 0, device="cpu").device.type == "cpu"
     assert all(c.device.type == "cpu" for c in tt_svd(st, (4, 4), device="cpu"))
+    assert generate(lm_params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, lm, max_new_tokens=2,
+                    attn_chunk=4, device="cpu").shape == (1, 2)
 
 
 def test_cpu_run_launches_no_kernel():
