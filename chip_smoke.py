@@ -7,7 +7,7 @@ against its plain PyTorch version on the card, runs CP-ALS, Tucker HOOI and
 TT-ALS at NELL-2's published size (12,092 x 9,184 x 28,818, 76,879,419 non-zeros,
 synthetic stand-in with seed 0 and zipf skew 1.1) through
 `repro_torch.api.decompose`, and measures the kernels; then serves the LM
-stack's models at full width (phase n).  Phases, each
+stack's models at full width (phase n) and trains them (phase o).  Phases, each
 printing one JSON line:
 
   a  device   the card (nvidia-smi name and power limit), CUDA version
@@ -130,6 +130,25 @@ printing one JSON line:
               whole): a prefill of 4 x 256 and 16 decode steps after a
               warm-up, finite float32 logits, ms, peak memory, the decode
               step profiled
+  o  training the LM stack's training path (no decomposition kernel; the
+              counters stay 0): qwen3-0.6b as configured (28 layers, d 1,024,
+              vocabulary 151,936, float32 masters, bfloat16 compute, remat)
+              through launch.train.train_once, batch 8 x seq 512, 2
+              microbatches, AdamW with warmup 2, 12 steps, seed 0 (ms a step
+              as the median of steps 3-12, tokens/s, peak device memory, the
+              loss at every step: finite, the last below the first), then 2
+              steps profiled (kernels a step, device ms, idle share); the
+              reduced config in float32, 3 steps on the card and on the CPU
+              from one state (losses within 1e-5, parameters within 1e-4);
+              at full width in float32, remat on against off (losses within
+              1e-5, both peaks), 2 microbatches against 1 (one step: the
+              accumulated gradient within 1e-5 of each leaf's largest
+              value; the parameters' gap reported) and int8 error feedback for 5 steps
+              (finite, falling); phi3.5-moe (1 layer, both dispatch modes,
+              the same drops), llama-3.2-vision (5), mamba2-370m and
+              whisper-large-v3 (whole) at full width, 4 x 256 for 4 steps
+              at lr 1e-4 (finite);
+              why jamba and grok-1 are not trained on one card
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -185,6 +204,13 @@ from repro_torch.core.memctrl import (  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.convert import train_state_from_numpy, train_state_to_numpy  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.train.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.train import train_step as train_step_mod  # noqa: E402
+from repro_torch.train.stacks import members  # noqa: E402
+from repro_torch.train.train_step import init_train_state, make_train_step  # noqa: E402
 from repro_torch.models import moe as lm_moe  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 from repro_torch.models.layers import norm_apply  # noqa: E402
@@ -427,6 +453,46 @@ BOTH_DISPATCH = "phi3.5-moe-42b-a6.6b"  # served once per MoE dispatch mode
 # host time, the top kernels by device time.
 PROFILE_REPS = 3
 PROFILE_TOP = 8
+# Phase o: the LM stack's training path.  The main path: qwen3-0.6b as
+# configured through launch.train (TRAIN_MAIN_ARGS); ms a step is the
+# median of steps 3-12 (host clock; the loss's transfer syncs), then
+# TRAIN_PROFILE_STEPS steps timed and as many profiled.  Held to the CPU:
+# the reduced config in float32, TRAIN_CPU_STEPS steps on both from one
+# state; held to itself at full width in float32: remat on against off
+# (TRAIN_SELF_STEPS steps), 2 microbatches against 1 (one step from each of
+# TRAIN_MB_SEEDS), int8 error feedback (TRAIN_COMPRESS_STEPS steps).
+# Losses within TOL_TRAIN_LOSS relative, parameters within TOL_TRAIN_PARAM
+# of each leaf's largest |value|.  2 microbatches against 1: the gradient
+# AdamW receives within TOL_TRAIN_GRAD of each leaf's largest |gradient|;
+# the parameters after that step held to what Adam's first step,
+# lr s g / (s |g| + 1e-8) with s the clip scale, allows: every element
+# within 2 lr (plus 2^-21 of the leaf's largest |value| for the rounding of
+# the subtraction), since that step moves an element by less than lr either
+# way whatever its gradient; and the elements whose |gradient| is at least
+# TRAIN_MB_SHARP times the leaf's gradient gap (their update cannot turn on
+# that gap) within TOL_TRAIN_PARAM.  The other families at full width,
+# depth cut to what one card holds, TRAIN_FAMILY_BATCH x TRAIN_FAMILY_SEQ
+# for TRAIN_FAMILY_STEPS steps at TRAIN_FAMILY_LR (at qwen3's 1e-3 the
+# d 4,096 models' losses jump).
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_LR, TRAIN_SEED = 1e-3, 0
+TRAIN_MAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "12", "--batch", "8", "--seq", "512", "--microbatches", "2",
+                   "--warmup", "2", "--lr", str(TRAIN_LR), "--seed", str(TRAIN_SEED), "--log-every", "4"]
+TRAIN_MEDIAN_FROM = 2  # steps 3-12 (0-based 2-11)
+TRAIN_PROFILE_STEPS = 2
+TRAIN_CPU_STEPS, TRAIN_SELF_STEPS, TRAIN_COMPRESS_STEPS = 3, 2, 5
+# TOL_TRAIN_GRAD: measured 5.7e-6 to 7.1e-6 over TRAIN_MB_SEEDS on an H100
+# (a norm scale's or an attention weight's sums over the 4,096 tokens in
+# two halves against one).
+TOL_TRAIN_LOSS, TOL_TRAIN_PARAM, TOL_TRAIN_GRAD = 1e-5, 1e-4, 2e-5
+TRAIN_MB_SEEDS, TRAIN_MB_SHARP = (0, 1, 2), 1e3
+TRAIN_FAMILIES = {"phi3.5-moe-42b-a6.6b": 1, "llama-3.2-vision-11b": 5, "mamba2-370m": None,
+                  "whisper-large-v3": None}
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS, TRAIN_FAMILY_LR = 4, 256, 4, 1e-4
+# Not trained on one card: one period / layer (with the embeddings) at 14 B
+# a parameter (fsdp archs: float32 master, bfloat16 m, v, cast, gradient).
+TRAIN_NOT_ON_ONE_CARD = {"jamba-v0.1-52b": 8, "grok-1-314b": 1}
+CARD_BYTES = 80e9
 
 
 def emit(obj: dict) -> None:
@@ -751,6 +817,7 @@ def main() -> int:
     dist_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen, entries)
     torch.cuda.empty_cache()
     serving_phase()
+    training_phase()
 
     emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
@@ -2274,6 +2341,282 @@ def serving_phase() -> None:
           "main_path": main_path, "float32_rerun": {**f32, "decode_after_prefill_max_rel_gap": gap,
                                                     "tol": TOL_DECODE},
           "families": families, "decomposition_kernel_launches": list(launches)})
+
+
+
+def param_rel_gaps(a, b, cfg) -> dict[str, float]:
+    """Per parameter leaf (the reference's names): max |a - b| over the
+    largest |b|, of two train states."""
+    fa, fb = (dict(numpy_leaves(train_state_to_numpy(x, cfg)["params"])) for x in (a, b))
+    return {k: float(np.abs(fa[k].astype(np.float64) - fb[k]).max() / max(np.abs(fb[k]).max(), 1e-30))
+            for k in fb}
+
+
+def numpy_leaves(tree, prefix: str = ""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from numpy_leaves(v, f"{prefix}{k}.")
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from numpy_leaves(v, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def opt_for(cfg, lr: float) -> AdamWConfig:
+    """launch.train's optimizer: bfloat16 moments for fsdp archs."""
+    return AdamWConfig(lr=lr, warmup_steps=2, total_steps=100, state_dtype="bfloat16" if cfg.fsdp else "float32")
+
+
+@contextlib.contextmanager
+def optimizer_input(into: dict):
+    """Record the gradient tree each train step hands AdamW (after the
+    microbatches' accumulation) into `into`."""
+    real = train_step_mod.adamw_update
+
+    def spy(params, grads, state, cfg):
+        into.update(grads)
+        return real(params, grads, state, cfg)
+
+    train_step_mod.adamw_update = spy
+    try:
+        yield into
+    finally:
+        train_step_mod.adamw_update = real
+
+
+def stub_memory(cfg, batch: dict, seed: int, index: int) -> dict:
+    """The batch with the memory stream its family reads (whisper frames,
+    vision patches; 0.1 x standard normal from (seed, index)), else as is:
+    the token pipeline carries none."""
+    if cfg.family not in ("audio", "vlm"):
+        return batch
+    B = batch["tokens"].shape[0]
+    rng = np.random.default_rng((seed, index, 1))
+    key, rows = ("frames", cfg.encoder_seq) if cfg.family == "audio" else ("images", cfg.img_tokens)
+    return dict(batch, **{key: (rng.standard_normal((B, rows, cfg.d_model), np.float32) * 0.1)})
+
+
+def trained(cfg, steps: int, batch: int, seq: int, lr: float = TRAIN_LR, seed: int = TRAIN_SEED,
+            **step_kw) -> tuple:
+    """`steps` steps of the port's train step on cuda:0 from `seed` (the
+    parameters and the batches): (the state, {losses, lrs, ms per step,
+    peak device bytes over what was allocated before})."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt = opt_for(cfg, lr)
+    state = init_train_state(cfg, opt, generator=torch.Generator("cuda").manual_seed(seed), device="cuda",
+                             compress_grads=step_kw.get("compress_grads", False))
+    step = make_train_step(cfg, opt, **step_kw)
+    pipe = TokenPipeline(cfg.vocab, seq, batch, seed=seed)
+    losses, lrs, ms = [], [], []
+    for i in range(steps):
+        b = stub_memory(cfg, pipe.batch(i), seed, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, b)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        lrs.append(float(metrics["lr"]))
+    return state, {"losses": losses, "lrs": lrs, "ms": ms,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated() - before}
+
+
+def train_main_path() -> tuple[dict, list]:
+    """qwen3-0.6b through launch.train as a user runs it, then profiled."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    args = launch_train.parse_args(TRAIN_MAIN_ARGS)
+    out: dict = {}
+    t0 = time.perf_counter()
+    launch_train.train_once(args, 0, out)
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    step_ms = statistics.median(h["ms"] for h in hist[TRAIN_MEDIAN_FROM:])
+    failures = []
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        failures.append(f"{TRAIN_ARCH} main path: losses {losses} not finite and falling")
+    cfg, _, step_fn, pipe = launch_train.build(args)
+    state = out.pop("state")
+    batch = pipe.batch(args.steps)
+
+    def one_step():
+        step_fn(state, batch)
+
+    profile = device_profile(one_step, TRAIN_PROFILE_STEPS)
+    del state, out
+    tokens = args.batch * args.seq
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+            "compute_dtype": cfg.compute_dtype, "remat": cfg.remat, "batch": args.batch, "seq": args.seq,
+            "microbatches": args.microbatches, "lr": args.lr, "warmup": args.warmup, "steps": args.steps,
+            "losses": losses, "lr_per_step": [h["lr"] for h in hist],
+            "grad_norms": [h["grad_norm"] for h in hist], "step_ms": [h["ms"] for h in hist],
+            "median_step_ms": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+            "peak_device_bytes": peak, "train_once_s": wall_s, "profile": profile}, failures
+
+
+def train_cpu_parity() -> tuple[dict, list]:
+    """The reduced config in float32: the card against the CPU from one state."""
+    cfg = get_config(TRAIN_ARCH).reduced()
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=30)
+    cpu = init_train_state(cfg, opt, generator=torch.Generator("cpu").manual_seed(TRAIN_SEED), device="cpu")
+    gpu = train_state_from_numpy(train_state_to_numpy(cpu, cfg), cfg, "cuda")
+    step = make_train_step(cfg, opt, attn_chunk=8)
+    pipe = TokenPipeline(cfg.vocab, 32, 8, seed=TRAIN_SEED)
+    losses = {"cuda": [], "cpu": []}
+    for i in range(TRAIN_CPU_STEPS):
+        for dev, st in (("cuda", gpu), ("cpu", cpu)):
+            _, m = step(st, pipe.batch(i))
+            losses[dev].append(float(m["loss"]))
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    gaps = param_rel_gaps(gpu, cpu, cfg)
+    worst = max(gaps, key=gaps.get)
+    failures = []
+    if loss_gap > TOL_TRAIN_LOSS:
+        failures.append(f"reduced float32: card against CPU losses {losses} gap {loss_gap}")
+    if gaps[worst] > TOL_TRAIN_PARAM:
+        failures.append(f"reduced float32: card against CPU parameter {worst} gap {gaps[worst]}")
+    return {"steps": TRAIN_CPU_STEPS, "losses": losses, "max_loss_rel_gap": loss_gap,
+            "max_param_rel_gap": gaps[worst], "worst_leaf": worst,
+            "leaves_over_1e-5": sorted(k for k, v in gaps.items() if v > 1e-5)}, failures
+
+
+def train_self_checks() -> tuple[dict, list]:
+    """Full width in float32: remat on against off, 2 microbatches against
+    1 after one step, and int8 error feedback."""
+    cfg32 = dataclasses.replace(get_config(TRAIN_ARCH), compute_dtype="float32")
+    B, S = 8, 512
+    failures = []
+    remat = {}
+    for on in (True, False):
+        state, row = trained(dataclasses.replace(cfg32, remat=on), TRAIN_SELF_STEPS, B, S, num_microbatches=2)
+        remat["on" if on else "off"] = row
+        del state
+    remat_gap = max(abs(a - b) / abs(b) for a, b in zip(remat["on"]["losses"], remat["off"]["losses"]))
+    if remat_gap > TOL_TRAIN_LOSS:
+        failures.append(f"float32 remat on against off: losses gap {remat_gap}")
+    microbatches = []
+    for seed in TRAIN_MB_SEEDS:
+        row, f = microbatches_2_vs_1(cfg32, B, S, seed)
+        microbatches.append(row)
+        failures += f
+    state, comp = trained(cfg32, TRAIN_COMPRESS_STEPS, B, S, num_microbatches=2, compress_grads=True)
+    ef_abs_max = max(float(t.abs().max()) for leaf in state.opt["ef"].values()
+                     for t in (leaf if isinstance(leaf, list) else [leaf]))
+    del state
+    if not (all(math.isfinite(x) for x in comp["losses"]) and comp["losses"][-1] < comp["losses"][0]):
+        failures.append(f"float32 int8 error feedback: losses {comp['losses']} not finite and falling")
+    return {"batch": B, "seq": S, "remat": {**remat, "max_loss_rel_gap": remat_gap},
+            "microbatches_2_vs_1": {"tol_grad": TOL_TRAIN_GRAD, "tol_sharp_param": TOL_TRAIN_PARAM,
+                                    "sharp_over_grad_gap": TRAIN_MB_SHARP, "by_seed": microbatches},
+            "compress_grads": {**comp, "ef_abs_max": ef_abs_max}}, failures
+
+
+def microbatches_2_vs_1(cfg, B: int, S: int, seed: int) -> tuple[dict, list]:
+    """One step from `seed` with 2 microbatches and with 1: the gradients
+    AdamW receives, and the parameters after the step held to Adam's first
+    step (see TRAIN_MB_SHARP)."""
+    states, grads, lrs = {}, {}, {}
+    for n in (1, 2):
+        with optimizer_input(grads.setdefault(n, {})):
+            states[n], row = trained(cfg, 1, B, S, seed=seed, num_microbatches=n)
+        lrs[n] = row["lrs"][0]
+    lr = lrs[1]
+    p1, p2 = (train_step_mod.master_leaves(states[n].params, cfg) for n in (1, 2))
+    ggap, over_2lr, sharp_gap = {}, {}, {}
+    n_sharp, n_all = 0, 0
+    for k in grads[1]:
+        g1s, g2s = members(grads[1][k]), members(grads[2][k])
+        delta = max(float((b - a).abs().max()) for a, b in zip(g1s, g2s))
+        ggap[k] = delta / max(max(float(g.abs().max()) for g in g1s), 1e-30)
+        pmax = max(float(p.abs().max()) for p in members(p1[k]))
+        over_2lr[k], sharp_gap[k] = 0.0, 0.0
+        for a, b, g in zip(members(p1[k]), members(p2[k]), g1s):
+            d = (b - a).abs()
+            over_2lr[k] = max(over_2lr[k], float(d.max()) / (2 * lr + 2.0**-21 * pmax))
+            sharp = g.abs() >= TRAIN_MB_SHARP * delta
+            n_sharp, n_all = n_sharp + int(sharp.sum()), n_all + g.numel()
+            if sharp.any():
+                sharp_gap[k] = max(sharp_gap[k], float(d[sharp].max()) / max(pmax, 1e-30))
+    del states, grads, p1, p2
+    gworst, bworst, sworst = (max(x, key=x.get) for x in (ggap, over_2lr, sharp_gap))
+    failures = []
+    if lrs[1] != lrs[2]:
+        failures.append(f"2 microbatches against 1 (seed {seed}): lr {lrs}")
+    if ggap[gworst] > TOL_TRAIN_GRAD:
+        failures.append(f"float32 2 microbatches against 1 (seed {seed}): gradient {gworst} gap {ggap[gworst]}")
+    if over_2lr[bworst] > 1.0:
+        failures.append(f"float32 2 microbatches against 1 (seed {seed}): parameter {bworst} moved "
+                        f"{over_2lr[bworst]} times 2 lr")
+    if sharp_gap[sworst] > TOL_TRAIN_PARAM:
+        failures.append(f"float32 2 microbatches against 1 (seed {seed}): parameter {sworst} gap "
+                        f"{sharp_gap[sworst]} where its gradient is sharp")
+    return {"seed": seed, "lr": lr, "max_grad_rel_gap": ggap[gworst], "worst_grad_leaf": gworst,
+            "max_param_gap_over_2lr": over_2lr[bworst], "worst_leaf_over_2lr": bworst,
+            "max_sharp_param_rel_gap": sharp_gap[sworst], "worst_sharp_leaf": sworst,
+            "sharp_share": n_sharp / n_all}, failures
+
+
+def train_families() -> tuple[list, list, list]:
+    rows, failures = [], []
+    for arch, layers in TRAIN_FAMILIES.items():
+        full = get_config(arch)
+        modes = ("remap", "onehot") if arch == BOTH_DISPATCH else (None,)
+        for mode in modes:
+            cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+            if mode is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=mode))
+            state, row = trained(cfg, TRAIN_FAMILY_STEPS, TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, lr=TRAIN_FAMILY_LR)
+            n = sum(p.numel() for p in state.params.parameters())
+            row.update({"arch": arch, "lr": TRAIN_FAMILY_LR, "falling": row["losses"][-1] < row["losses"][0],
+                        "n_layers": cfg.n_layers, "full_n_layers": full.n_layers, "dispatch": mode,
+                        "params": n, "fsdp": cfg.fsdp, "median_step_ms": statistics.median(row["ms"][1:]),
+                        "tokens_per_s": TRAIN_FAMILY_BATCH * TRAIN_FAMILY_SEQ / (statistics.median(row["ms"][1:]) / 1e3)})
+            if mode == "remap":
+                tokens = torch.as_tensor(TokenPipeline(cfg.vocab, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_BATCH,
+                                                       seed=TRAIN_SEED).batch(0)["tokens"], device="cuda")
+                with torch.no_grad():
+                    row["moe_drops"] = moe_drops({"params": state.params, "inputs": {"tokens": tokens}}, cfg)
+            if not all(math.isfinite(x) for x in row["losses"]):
+                failures.append(f"{arch} ({mode}): losses {row['losses']} not finite")
+            rows.append(row)
+            del state
+    skipped = []
+    for arch, layers in TRAIN_NOT_ON_ONE_CARD.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        n = sum(p.numel() for p in lm.abstract_params(cfg).parameters())
+        skipped.append({"arch": arch, "n_layers": layers, "params": n, "bytes_at_14_per_param": n * 14,
+                        "card_bytes": CARD_BYTES,
+                        "why": "one period (or layer) with its embeddings and its optimizer state exceeds one "
+                               "card: it needs the optimizer sharded over several cards (the mesh slice)"})
+    return rows, skipped, failures
+
+
+def training_phase() -> None:
+    """Phase o: the LM stack's training path on the card (no decomposition
+    kernel on it: the counters stay 0).  Every number is emitted before any
+    failed check raises."""
+    phase_t0 = time.perf_counter()
+    reset_launches()
+    main_path, failures = train_main_path()
+    cpu, f = train_cpu_parity()
+    failures += f
+    self_checks, f = train_self_checks()
+    failures += f
+    families, not_trained, f = train_families()
+    failures += f
+    launches = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
+    if launches != (0, 0, 0):
+        failures.append(f"the training path launched decomposition kernels: {launches}")
+    emit({"phase": "o", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "main_path": main_path, "card_vs_cpu": {**cpu, "tol_loss": TOL_TRAIN_LOSS, "tol_param": TOL_TRAIN_PARAM},
+          "full_width_float32": self_checks, "families": families, "not_trained": not_trained,
+          "decomposition_kernel_launches": list(launches), "failures": failures})
+    check(not failures, "; ".join(failures))
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ One `ModelConfig` per assigned architecture (exact published numbers) plus a
 `reduced()` shrink used by CPU smoke tests.  `layer_kinds()` derives the
 per-layer (mixer, ffn) pattern, which repeats with `period`; the port walks
 the layers in depth order (layer i is position i % period of repeat
-i // period).  `remat`, `remat_group`, `scan_unroll` and `barrier_xs` shape
-the reference's XLA graph only; the port accepts them and they have no
-effect.
+i // period).  `remat` and `remat_group` choose what the training path
+recomputes in its backward pass (`torch.utils.checkpoint`); `scan_unroll`
+and `barrier_xs` shape the reference's XLA graph only: the port accepts
+them and they have no effect.
 """
 from __future__ import annotations
 

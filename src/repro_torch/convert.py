@@ -20,7 +20,7 @@ from .tucker.hooi import TuckerState
 
 __all__ = ["factors_from_numpy", "cores_from_numpy", "plan_from_numpy", "config_from_reference",
            "cpstate_to_numpy", "tuckerstate_to_numpy", "ttstate_to_numpy", "params_from_numpy",
-           "caches_from_numpy", "caches_to_numpy"]
+           "caches_from_numpy", "caches_to_numpy", "train_state_from_numpy", "train_state_to_numpy"]
 
 #: Fields of the reference's configuration that only its TPU VMEM model
 #: reads (resident factor tiles, double buffering); the port's kernels
@@ -121,14 +121,15 @@ def _tensor(a, device, dtype: torch.dtype | None = None) -> torch.Tensor:
     return t if dtype is None else t.to(dtype)
 
 
-def _leaves(tree, prefix: str = ""):
-    """(dotted path, leaf) of every leaf of a nested dict / tuple tree."""
-    if isinstance(tree, dict):
+def _leaves(tree, prefix: str = "", is_leaf=lambda node: False):
+    """(dotted path, leaf) of every leaf of a nested dict / tuple tree
+    (a node for which `is_leaf` holds is a leaf)."""
+    if isinstance(tree, dict) and not is_leaf(tree):
         for k, v in tree.items():
-            yield from _leaves(v, f"{prefix}{k}.")
+            yield from _leaves(v, f"{prefix}{k}.", is_leaf)
     elif isinstance(tree, (tuple, list)):
         for k, v in enumerate(tree):
-            yield from _leaves(v, f"{prefix}{k}.")
+            yield from _leaves(v, f"{prefix}{k}.", is_leaf)
     else:
         yield prefix[:-1], tree
 
@@ -195,3 +196,116 @@ def caches_to_numpy(caches: Sequence[dict], cfg) -> tuple:
                                  for c in layers])
                     for k in layers[0]})
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# The LM stack: train states
+# ---------------------------------------------------------------------------
+
+
+def _is_rc(x) -> bool:
+    return isinstance(x, dict) and set(x) == {"r", "c"}
+
+
+def _nested(flat: dict) -> dict:
+    """The inverse of `_leaves`: nodes whose keys are all indices become
+    tuples (the reference's `blocks`)."""
+    root: dict = {}
+    for name, leaf in flat.items():
+        node = root
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def fix(node):
+        if not isinstance(node, dict) or _is_rc(node):
+            return node
+        node = {k: fix(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return tuple(node[str(i)] for i in range(len(node)))
+        return node
+
+    return fix(root)
+
+
+def _stacked_from_numpy(tree, like: dict, device) -> dict:
+    """A reference moment tree (m, v or ef) in the port's layout: keyed by
+    leaf name, a layer-stacked leaf split into its layers where the
+    parameters `like` are (a factored {r, c} pair of a stack of vectors
+    stays whole: its c is shared by the layers)."""
+    out = {}
+    for name, a in _leaves(tree, is_leaf=_is_rc):
+        if name not in like:
+            raise ValueError(f"optimizer leaf {name} is not a parameter of this config")
+        stack = isinstance(like[name], list)
+        if _is_rc(a):
+            if stack and like[name][0].dim() >= 2:
+                out[name] = [{"r": _tensor(r, device), "c": _tensor(c, device)}
+                             for r, c in zip(np.asarray(a["r"]), np.asarray(a["c"]))]
+            else:
+                out[name] = {"r": _tensor(a["r"], device), "c": _tensor(a["c"], device)}
+        else:
+            out[name] = [_tensor(x, device) for x in np.asarray(a)] if stack else _tensor(a, device)
+    if set(out) != set(like):
+        raise ValueError(f"optimizer tree lacks {sorted(set(like) - set(out))[:4]}")
+    return out
+
+
+def _field(state, name: str):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def train_state_from_numpy(state, cfg, device: str | torch.device):
+    """The reference's `TrainState` as numpy (`jax.tree.map(np.asarray,
+    state)`, or a dict with its fields params, opt, rng) as the port's on
+    `device`: the parameters restacked by `params_from_numpy`; m, v (or
+    factored r/c), ef split into layers; step as int32.  The port's
+    generator is seeded with the reference key's two words (k0 << 32 | k1):
+    the same seed, not the same numbers."""
+    from .train.train_step import TrainState, master_leaves
+
+    params = params_from_numpy(_field(state, "params"), cfg, device)
+    like = master_leaves(params, cfg)
+    opt_np = _field(state, "opt")
+    opt = {k: _stacked_from_numpy(opt_np[k], like, device) for k in ("m", "v", "ef") if k in opt_np}
+    opt["step"] = torch.tensor(np.asarray(opt_np["step"]), dtype=torch.int32, device=device)
+    extra = set(opt_np) - {"m", "v", "ef", "step"}
+    if extra:
+        raise ValueError(f"optimizer state keys {sorted(extra)} are not the port's")
+    key = np.asarray(_field(state, "rng")).astype(np.uint64).reshape(-1)
+    seed = int((key[0] << np.uint64(32)) | key[-1]) if key.size else 0
+    rng = torch.Generator(device).manual_seed(seed)
+    return TrainState(params=params, opt={"m": opt.pop("m"), "v": opt.pop("v"), **opt}, rng=rng)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """bfloat16 as float32, exactly."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def _stacked_to_numpy(tree: dict) -> dict:
+    out = {}
+    for name, leaf in tree.items():
+        if isinstance(leaf, list) and leaf and _is_rc(leaf[0]):
+            out[name] = {k: np.stack([_numpy(x[k]) for x in leaf]) for k in ("r", "c")}
+        elif isinstance(leaf, list):
+            out[name] = np.stack([_numpy(x) for x in leaf])
+        elif _is_rc(leaf):
+            out[name] = {k: _numpy(x) for k, x in leaf.items()}
+        else:
+            out[name] = _numpy(leaf)
+    return _nested(out)
+
+
+def train_state_to_numpy(state, cfg) -> dict:
+    """The port's `TrainState` in the reference's layout as numpy:
+    {"params", "opt": {"m", "v", "step"[, "ef"]}, "rng"}; parameters and
+    moments stacked over the layer repeats (bfloat16 moments as float32,
+    exactly); "rng" is the generator's state bytes."""
+    from .train.train_step import master_leaves
+
+    opt = {k: (_stacked_to_numpy(v) if k != "step" else _numpy(v)) for k, v in state.opt.items()}
+    return {"params": _stacked_to_numpy(master_leaves(state.params, cfg)), "opt": opt,
+            "rng": state.rng.get_state().numpy()}

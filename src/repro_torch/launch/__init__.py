@@ -1,2 +1,2 @@
-"""Launchers: the serving driver (the training and dry-run drivers come with
-the LM stack's training half)."""
+"""Launchers: the serving and training drivers (one device; the dry-run
+driver comes with the LM sharding rules)."""

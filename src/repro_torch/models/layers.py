@@ -9,8 +9,11 @@ Conventions (used by every model module of the port):
     drawn, which gives the abstract parameter tree.
   * Compute dtype (bfloat16 on the card) is applied at use; parameters stay
     in param_dtype.
-  * Functions are plain: tensors and `Params` in, tensors out; no autograd
-    (serving runs under `torch.no_grad`).
+  * Functions are plain: tensors and `Params` in, tensors out.  The
+    `Params` leaves need no gradient (serving runs under `torch.no_grad`);
+    the train step takes gradients against a tree of plain dicts holding
+    cast copies of them (`train/train_step.py`), which every function here
+    reads as it reads `Params`.
 """
 from __future__ import annotations
 

@@ -13,7 +13,9 @@ Three execution paths over the same parameters:
 Layout: x (B, S, H, P) heads x head_dim; B/C (B, S, G, N) groups x state;
 dt (B, S, H).  State h is (B, H, P, N), fp32 throughout the recurrence.
 The segment sums are the reference's: a cumulative sum of log decays per
-chunk and exp of their differences.
+chunk and exp of their differences, taken below the diagonal only (the
+reference also exponentiates the masked deltas above it, which overflow
+at full width and turn its gradients NaN; the values are the same).
 """
 from __future__ import annotations
 
@@ -105,7 +107,10 @@ def ssd_chunked(x, dt, A, Bm, Cm, D=None, h0=None, *, chunk: int = 256) -> tuple
     lt = l.permute(0, 1, 3, 2)  # (B, nc, H, Q)
     delta = lt[..., :, None] - lt[..., None, :]  # l_t - l_s
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    seg = torch.where(tri, torch.exp(delta), torch.zeros((), device=x.device))
+    # exp of the masked deltas only: above the diagonal delta > 0 can
+    # overflow to inf, whose 0-weighted gradient would be NaN (inf * 0)
+    zero = torch.zeros((), device=x.device)
+    seg = torch.where(tri, torch.exp(torch.where(tri, delta, zero)), zero)
     M = cb * seg * dtf.permute(0, 1, 3, 2)[..., None, :]  # * dt_s
     y_intra = torch.einsum("bchqs,bcshp->bcqhp", M, xf)
 

@@ -1,6 +1,5 @@
-"""Unified model, the serving half: one composable stack covering every
-assigned family.  The port of `repro.models.transformer`'s init, prefill and
-decode.
+"""Unified model: one composable stack covering every assigned family.  The
+port of `repro.models.transformer`.
 
   dense / moe          decoder-only LM (GQA attn + MLP/MoE)
   ssm                  Mamba2 stack (attention-free)
@@ -17,9 +16,20 @@ Caches are a list in the same depth order, one dict per layer.
 
 Entry points:
   init_params / abstract_params          parameters (on a device / on meta)
+  apply_train -> (loss, metrics)         next-token CE (+ MoE aux losses)
   prefill    -> (last_logits, caches)    full-prompt pass, caches filled
   decode_step-> (logits, caches)         one token against the caches
   init_caches                            zeroed decode state
+
+Training (`forward_hidden`, `apply_train`) walks the same layers.  With
+`cfg.remat` each layer runs under `torch.utils.checkpoint` (its activations
+are recomputed in the backward pass); with `cfg.remat_group` = g > 1
+dividing the repeats, groups of g repeats are checkpointed too, each layer
+inside them as well.  Remat changes memory, never numbers.  `scan_unroll`
+and `barrier_xs` shape the reference's XLA graph only and have no effect.
+The model functions take any tree that answers `p["name"]`, `"name" in p`
+and iterates `p["blocks"]`: the `Params` modules, or the train step's
+plain dicts of cast tensors that require grad.
 
 Memory streams (whisper frames, vlm images) are taken in the compute
 dtype.  The reference keeps them as given, so float32 stubs under bfloat16
@@ -27,11 +37,12 @@ compute turn its hidden state float32 and its layer scan refuses them.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .attention import attn_init, cross_attention, self_attention_decode, self_attention_prefill, \
@@ -41,8 +52,8 @@ from .layers import Params, dtype_of, embed, embed_init, mlp, mlp_init, norm_app
 from .moe import moe_apply, moe_init
 from .ssm import mamba_decode, mamba_init, mamba_init_cache, mamba_train
 
-__all__ = ["init_params", "abstract_params", "prefill", "decode_step", "init_caches", "lm_logits",
-           "encode_audio"]
+__all__ = ["init_params", "abstract_params", "apply_train", "forward_hidden", "cross_entropy", "prefill",
+           "decode_step", "init_caches", "lm_logits", "encode_audio"]
 
 #: Rows of the reference's decode-side sinusoid table; positions past it
 #: read its last row.
@@ -147,17 +158,57 @@ def _apply_ffn(bp: Params, x: torch.Tensor, cfg, ffn: str):
     return x + out, aux
 
 
-@torch.no_grad()
+def _chain(fns: list[Callable]) -> Callable:
+    """x through `fns` (each x -> (x, aux)) in turn: x -> (x, [aux, ...])."""
+
+    def run(x):
+        auxes = []
+        for f in fns:
+            x, aux = f(x)
+            auxes.append(aux)
+        return x, auxes
+
+    return run
+
+
+def _checkpointed(fn: Callable) -> Callable:
+    return lambda x: checkpoint(fn, x, use_reentrant=False)
+
+
+def _run_layers(cfg, layers: list[Callable], x: torch.Tensor, period: int) -> tuple[torch.Tensor, list[dict]]:
+    """x through `layers` (each x -> (x, aux)) in depth order, under
+    `torch.utils.checkpoint` where cfg.remat asks and gradients are on.
+    Returns (x, the layers' aux dicts)."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return _chain(layers)(x)
+    fns = [_checkpointed(f) for f in layers]
+    grp = getattr(cfg, "remat_group", 0) * period
+    if grp <= period or len(fns) % grp:
+        return _chain(fns)(x)
+    # two-level (sqrt) remat: only the group boundaries are saved; a group's
+    # layers are recomputed, each inside its own checkpoint
+    x, groups = _chain([_checkpointed(_chain(fns[i:i + grp])) for i in range(0, len(fns), grp)])(x)
+    return x, [aux for g in groups for aux in g]
+
+
 def encode_audio(params: Params, frames: torch.Tensor, cfg) -> torch.Tensor:
-    """Whisper encoder over precomputed frame embeddings (conv stub)."""
+    """Whisper encoder over precomputed frame embeddings (conv stub).
+    Takes gradients when they are on (training); the serving callers run
+    it under `torch.no_grad`."""
     nk = _norm_kind(cfg)
     enc = params["encoder"]
     x = frames + sinusoid_positions(frames.shape[1], cfg.d_model, device=frames.device).to(frames.dtype)
-    for bp in enc["blocks"]:
-        h = norm_apply(nk, bp["norm1"], x, cfg.norm_eps)
-        x = x + self_attention_train(bp["attn"], h, cfg, causal=False)
-        h = norm_apply(nk, bp["norm2"], x, cfg.norm_eps)
-        x = x + mlp(bp["mlp"], h, cfg.act)
+
+    def layer(bp):
+        def run(x):
+            h = norm_apply(nk, bp["norm1"], x, cfg.norm_eps)
+            x = x + self_attention_train(bp["attn"], h, cfg, causal=False)
+            h = norm_apply(nk, bp["norm2"], x, cfg.norm_eps)
+            return x + mlp(bp["mlp"], h, cfg.act), {}
+
+        return run
+
+    x, _ = _run_layers(cfg, [layer(bp) for bp in enc["blocks"]], x, 1)
     return norm_apply(nk, enc["norm_post"], x, cfg.norm_eps)
 
 
@@ -194,6 +245,76 @@ def _memory_of(params: Params, batch: dict, cfg) -> torch.Tensor | None:
     if cfg.family == "vlm":
         return batch["images"].to(cd)
     return None
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def _apply_block_train(bp: Params, x: torch.Tensor, cfg, mixer: str, ffn: str,
+                       memory: torch.Tensor | None, attn_chunk: int):
+    nk = _norm_kind(cfg)
+    h = norm_apply(nk, bp["norm1"], x, cfg.norm_eps)
+    if mixer == "attn":
+        x = x + self_attention_train(bp["attn"], h, cfg, chunk=attn_chunk)
+    elif mixer == "mamba":
+        x = x + mamba_train(bp["mamba"], h, cfg)
+    elif mixer == "xattn":
+        y, _ = cross_attention(bp["xattn"], h, memory, cfg)
+        x = x + torch.tanh(bp["gate_attn"]).to(x.dtype) * y
+    if cfg.family == "audio":  # decoder cross-attn into encoder memory
+        hx = norm_apply(nk, bp["norm_x"], x, cfg.norm_eps)
+        y, _ = cross_attention(bp["xattn"], hx, memory, cfg)
+        x = x + y
+    return _apply_ffn(bp, x, cfg, ffn)
+
+
+def forward_hidden(params: Params, batch: dict, cfg, *, attn_chunk: int = 2048
+                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Token stream -> (final hidden states (B, S, D), the MoE aux losses
+    summed over the layers: {"load_balance", "router_z"}, zeros without
+    MoE)."""
+    pattern = cfg.pattern_kinds()
+    memory = _memory_of(params, batch, cfg)
+    x = _embed_tokens(params, batch["tokens"], cfg)
+
+    def layer(i, bp):
+        mixer, ffn = pattern[i % len(pattern)]
+        return lambda x: _apply_block_train(bp, x, cfg, mixer, ffn, memory, attn_chunk)
+
+    x, auxes = _run_layers(cfg, [layer(i, bp) for i, bp in enumerate(params["blocks"])], x, len(pattern))
+    aux = {}
+    for key in ("load_balance", "router_z"):
+        vals = [a[key] for a in auxes if key in a]
+        aux[key] = torch.stack(vals).sum() if vals else torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked next-token CE.  labels < 0 are ignored.  Returns (sum, count)."""
+    valid = labels >= 0
+    safe = torch.clamp(labels, min=0).long()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, torch.zeros((), dtype=lse.dtype, device=lse.device))
+    return nll.sum(), valid.sum()
+
+
+def apply_train(params: Params, batch: dict, cfg, *, attn_chunk: int = 2048
+                ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Full forward + masked CE loss (+ MoE aux): loss = ce + 0.01 lb +
+    1e-3 z.  Metrics: ce, tokens, load_balance, router_z.  The train step
+    microbatches around this, so logits exist for one microbatch at a
+    time."""
+    h, aux = forward_hidden(params, batch, cfg, attn_chunk=attn_chunk)
+    logits = lm_logits(params, h, cfg)
+    nll_sum, count = cross_entropy(logits, batch["labels"])
+    loss = nll_sum / torch.clamp(count, min=1)
+    metrics = {"ce": loss, "tokens": count}
+    loss = loss + 0.01 * aux["load_balance"] + 1e-3 * aux["router_z"]
+    metrics.update(aux)
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------

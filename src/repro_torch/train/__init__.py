@@ -1,6 +1,7 @@
-"""Training substrate of the port.  Only the checkpoint manager so far: the
-planned drive loop's checkpoint/resume rides on it.  The optimizer and the
-train step come with the LM stack."""
+"""Training substrate of the port: the checkpoint manager (the planned drive
+loop's checkpoint/resume rides on it too) and the LM stack's AdamW, stacked
+trees and train step (`optimizer`, `stacks`, `train_step`; import them
+from their modules)."""
 from .checkpoint import CheckpointManager
 
 __all__ = ["CheckpointManager"]

@@ -11,7 +11,9 @@ Layout: ``<dir>/step_<n>/``
     is ignored.
   * **Keep-last-k**: older steps are pruned after each save.
   * **Async**: `save(..., blocking=False)` copies the leaves to host
-    memory at once and writes them on a daemon thread (at most one
+    memory at once (a CPU tensor or a numpy array is copied too, so a
+    step that updates it in place while the thread writes does not reach
+    the checkpoint) and writes them on a daemon thread (at most one
     outstanding save).
   * **Restore onto devices**: `restore(step, device=...)` returns the
     leaves as tensors on `device` (the CPU by default); `restore(step,
@@ -19,7 +21,11 @@ Layout: ``<dir>/step_<n>/``
     saved tree's structure and puts each leaf on its device, whatever
     devices saved it (the reference's tree of shardings).
 
-Leaves are torch tensors (`.detach().cpu().numpy()`), numpy arrays or
+`save_train_state` / `restore_train_state` carry the LM stack's
+`TrainState` (parameters, optimizer moments, step, compression residual)
+through a manager.
+
+Leaves are torch tensors (copied to numpy), numpy arrays or
 Python scalars.  The tree's structure, nested dicts (string or integer
 keys), tuples and lists, goes into the manifest as JSON, not as a pickle,
 so reading a checkpoint runs no code from it.
@@ -35,7 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 
-__all__ = ["CheckpointManager"]
+__all__ = ["CheckpointManager", "save_train_state", "restore_train_state"]
 
 
 def _flatten(tree: Any, leaves: list) -> Any:
@@ -69,9 +75,11 @@ def _unflatten(spec: Any, leaves: list) -> Any:
 
 
 def _host(leaf: Any) -> np.ndarray:
+    """A host copy of `leaf`: never a view of its storage."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        leaf = leaf.detach()
+        return leaf.numpy().copy() if leaf.device.type == "cpu" else leaf.cpu().numpy()
+    return np.array(leaf)
 
 
 class CheckpointManager:
@@ -174,3 +182,60 @@ class CheckpointManager:
         leaves = [torch.from_numpy(np.load(os.path.join(d, f"arr_{i}.npy"))).to(dev)
                   for i, dev in enumerate(devs)]
         return step, _unflatten(meta["tree"], leaves)
+
+
+# ---------------------------------------------------------------------------
+# train states
+# ---------------------------------------------------------------------------
+
+
+def _saveable(t: torch.Tensor) -> torch.Tensor:
+    """bfloat16 as float32 (exact; numpy has no bfloat16)."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _copy_into(dst, src, where: str = "") -> None:
+    if isinstance(dst, dict):
+        if set(dst) != set(src):
+            raise ValueError(f"checkpoint{where}: keys {sorted(src)} where the state has {sorted(dst)}")
+        for k in dst:
+            _copy_into(dst[k], src[k], f"{where}.{k}")
+    elif isinstance(dst, (list, tuple)):
+        if len(dst) != len(src):
+            raise ValueError(f"checkpoint{where}: {len(src)} entries where the state has {len(dst)}")
+        for i, (d, s) in enumerate(zip(dst, src)):
+            _copy_into(d, s, f"{where}.{i}")
+    else:
+        if tuple(dst.shape) != tuple(src.shape):
+            raise ValueError(f"checkpoint{where}: shape {tuple(src.shape)} where the state has {tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(src)
+
+
+def save_train_state(mgr: CheckpointManager, step: int, state, blocking: bool = True) -> None:
+    """Save a `train_step.TrainState`: the master parameters by name, the
+    optimizer state (m, v or factored r/c, step, and the compression
+    residual "ef" where there is one) and the generator's state."""
+    tree = {"params": {k: p.detach() for k, p in state.params.named_parameters()},
+            "opt": _map(_saveable, state.opt), "rng": state.rng.get_state()}
+    mgr.save(step, tree, blocking=blocking)
+
+
+def restore_train_state(mgr: CheckpointManager, state, step: int | None = None) -> int:
+    """Copy checkpoint `step` (the latest by default) into `state` in place,
+    each leaf keeping its device and dtype.  Raises ValueError where the
+    saved tree differs from the state's (another arch, optimizer or
+    compression setting).  Returns the step."""
+    step, tree = mgr.restore(step)
+    _copy_into({"params": dict(state.params.named_parameters()), "opt": state.opt},
+               {"params": tree["params"], "opt": tree["opt"]})
+    state.rng.set_state(tree["rng"].to(torch.uint8))
+    return step

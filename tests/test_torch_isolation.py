@@ -22,8 +22,11 @@ from repro_torch.tt import make_planned_tt, tt_als, tt_svd
 from repro_torch.tucker import make_planned_tucker, tucker_hooi
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch import train as launch_train
 from repro_torch.models.transformer import init_params
 from repro_torch.serve.engine import generate
+from repro_torch.train.optimizer import AdamWConfig
+from repro_torch.train.train_step import init_train_state, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -53,7 +56,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.tucker, repro_torch.tt, repro_torch.core.pms, repro_torch.tune, "
             "repro_torch.obs.calibrate, repro_torch.resilience, repro_torch.testing.faults, "
             "repro_torch.train.checkpoint, repro_torch.launch.serve, repro_torch.serve.engine, "
-            "repro_torch.configs; "
+            "repro_torch.configs, repro_torch.data.pipeline, repro_torch.dist.compression, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, repro_torch.launch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -94,7 +98,9 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
                  lambda: tt_svd(st, (4, 4)),
                  lambda: init_params(lm),
                  lambda: generate(lm_params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, lm),
-                 lambda: launch_serve.main(["--arch", "qwen3-0.6b", "--reduced"])):
+                 lambda: launch_serve.main(["--arch", "qwen3-0.6b", "--reduced"]),
+                 lambda: init_train_state(lm, AdamWConfig()),
+                 lambda: launch_train.main(["--arch", "qwen3-0.6b", "--reduced", "--steps", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert len(decompose(st, 4, iters=1, device="cpu").fit_history) == 1
@@ -107,6 +113,10 @@ def test_entry_points_raise_without_gpu_and_device(no_cuda):
     assert all(c.device.type == "cpu" for c in tt_svd(st, (4, 4), device="cpu"))
     assert generate(lm_params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, lm, max_new_tokens=2,
                     attn_chunk=4, device="cpu").shape == (1, 2)
+    state = init_train_state(lm, AdamWConfig(), device="cpu")
+    toks = torch.zeros((2, 8), dtype=torch.int32)
+    state, metrics = make_train_step(lm, AdamWConfig(), attn_chunk=4)(state, {"tokens": toks, "labels": toks})
+    assert state.params["embed"].device.type == "cpu" and metrics["loss"].device.type == "cpu"
 
 
 def test_cpu_run_launches_no_kernel():
