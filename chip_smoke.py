@@ -149,6 +149,22 @@ printing one JSON line:
               whisper-large-v3 (whole) at full width, 4 x 256 for 4 steps
               at lr 1e-4 (finite);
               why jamba and grok-1 are not trained on one card
+  p  mesh     the LM stack on a `DeviceMesh` (no decomposition kernel; the
+              counters stay 0): a one-rank NCCL process group begun in
+              this process (tcp://localhost, a free port) and a 1 x 1
+              ("data", "model") mesh from launch.mesh.make_host_mesh;
+              qwen3-0.6b at full width and depth through launch.train.main
+              on the mesh (8 x 512 in 2 microbatches, remat, 6 steps: ms a
+              step, peak device memory, the losses finite and falling),
+              every parameter and every gradient AdamW receives a DTensor
+              on the mesh; 2 steps from seed 0 on the mesh and off it
+              (losses within 1e-5 relative, parameters within 1e-5 of each
+              leaf's largest |value|); a mesh step and a plain step in
+              turns (host ms), then a mesh step profiled (device ms, idle
+              share; the plain step's are phase o's); launch.serve.main on
+              the mesh (8 x 512 prompts, 16
+              new tokens) and the plain `serve` in turns, tokens equal;
+              beside phase o's and phase n's numbers of this run
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -203,7 +219,7 @@ from repro_torch.core.memctrl import (  # noqa: E402
 )
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.serve import main as launch_serve_main, serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.convert import train_state_from_numpy, train_state_to_numpy  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
@@ -493,6 +509,21 @@ TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS, TRAIN_FAMILY_LR = 4, 2
 # a parameter (fsdp archs: float32 master, bfloat16 m, v, cast, gradient).
 TRAIN_NOT_ON_ONE_CARD = {"jamba-v0.1-52b": 8, "grok-1-314b": 1}
 CARD_BYTES = 80e9
+# Phase p: the LM stack on a one-rank mesh.  launch.train.main with
+# MESH_TRAIN_ARGS (phase o's main path on a 1 x 1 mesh, 6 steps; ms a step
+# the median from step 3), MESH_HELD_STEPS steps on and off the mesh from
+# one seed held within TOL_MESH (losses relative, parameters of each leaf's
+# largest |value|), MESH_TURNS steps of each in turns; launch.serve.main
+# with MESH_SERVE_ARGS and the plain `serve` in turns, tokens equal.
+MESH_TRAIN_ARGS = ["--arch", TRAIN_ARCH, "--steps", "6", "--batch", "8", "--seq", "512", "--microbatches", "2",
+                   "--warmup", "2", "--lr", str(TRAIN_LR), "--seed", str(TRAIN_SEED), "--log-every", "2",
+                   "--mesh-data", "1", "--mesh-model", "1"]
+MESH_MEDIAN_FROM = 2
+MESH_HELD_STEPS, MESH_TURNS, TOL_MESH = 2, 2, 1e-5
+MESH_SERVE_NEW = 16
+MESH_SERVE_ARGS = ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
+                   "--new-tokens", str(MESH_SERVE_NEW), "--seed", str(SERVE_SEED), "--mesh-data", "1",
+                   "--mesh-model", "1"]
 
 
 def emit(obj: dict) -> None:
@@ -816,8 +847,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_phase(st, {"cp": fits, "tucker": tucker_fits, "tt": tt_fits}, gen, entries)
     torch.cuda.empty_cache()
-    serving_phase()
-    training_phase()
+    serve_main_path = serving_phase()
+    train_main_path = training_phase()
+    mesh_phase(serve_main_path, train_main_path)
 
     emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
@@ -2302,7 +2334,7 @@ def serve_profiles(run: dict, cfg) -> dict:
     return {"prefill": pre, "decode_step": device_profile(step, PROFILE_REPS)}
 
 
-def serving_phase() -> None:
+def serving_phase() -> dict:
     """Phase n: the LM stack's serving path on the card (no decomposition
     kernel on it: the counters stay 0).  qwen3-0.6b at full width and depth
     through `launch.serve.serve` (a warm-up run, then the measured one),
@@ -2341,6 +2373,7 @@ def serving_phase() -> None:
           "main_path": main_path, "float32_rerun": {**f32, "decode_after_prefill_max_rel_gap": gap,
                                                     "tol": TOL_DECODE},
           "families": families, "decomposition_kernel_launches": list(launches)})
+    return main_path
 
 
 
@@ -2374,9 +2407,9 @@ def optimizer_input(into: dict):
     microbatches' accumulation) into `into`."""
     real = train_step_mod.adamw_update
 
-    def spy(params, grads, state, cfg):
+    def spy(params, grads, state, cfg, **kw):
         into.update(grads)
-        return real(params, grads, state, cfg)
+        return real(params, grads, state, cfg, **kw)
 
     train_step_mod.adamw_update = spy
     try:
@@ -2440,7 +2473,7 @@ def train_main_path() -> tuple[dict, list]:
     failures = []
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
         failures.append(f"{TRAIN_ARCH} main path: losses {losses} not finite and falling")
-    cfg, _, step_fn, pipe = launch_train.build(args)
+    cfg, _, _, step_fn, pipe = launch_train.build(args)
     state = out.pop("state")
     batch = pipe.batch(args.steps)
 
@@ -2596,7 +2629,7 @@ def train_families() -> tuple[list, list, list]:
     return rows, skipped, failures
 
 
-def training_phase() -> None:
+def training_phase() -> dict:
     """Phase o: the LM stack's training path on the card (no decomposition
     kernel on it: the counters stay 0).  Every number is emitted before any
     failed check raises."""
@@ -2617,6 +2650,201 @@ def training_phase() -> None:
           "full_width_float32": self_checks, "families": families, "not_trained": not_trained,
           "decomposition_kernel_launches": list(launches), "failures": failures})
     check(not failures, "; ".join(failures))
+    return main_path
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def on_mesh(t, mesh) -> bool:
+    """Whether `t` is a DTensor on `mesh` (the same ranks and axis names)."""
+    from repro_torch.dist.sharding import is_dtensor
+
+    return (is_dtensor(t) and t.device_mesh.mesh.tolist() == mesh.mesh.tolist()
+            and t.device_mesh.mesh_dim_names == mesh.mesh_dim_names)
+
+
+def mesh_train_run() -> tuple[dict, list]:
+    """launch.train.main on the mesh, the gradient tree AdamW receives
+    checked at each step (every leaf a DTensor on the mesh)."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {}
+    off_grads: set = set()  # gradients off the mesh at any step (names only: no tensor is held)
+    real = train_step_mod.adamw_update
+
+    def spy(params, grads, state, cfg, **kw):
+        mesh_ = next(iter(state["m"].values()))
+        mesh_ = (mesh_[0] if isinstance(mesh_, list) else mesh_).device_mesh
+        off_grads.update(k for k, g in grads.items() for t in members(g) if not on_mesh(t, mesh_))
+        return real(params, grads, state, cfg, **kw)
+
+    t0 = time.perf_counter()
+    train_step_mod.adamw_update = spy
+    try:
+        rc = launch_train.main(MESH_TRAIN_ARGS, out)
+    finally:
+        train_step_mod.adamw_update = real
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    check(rc == 0, f"launch.train.main on the mesh returned {rc}")
+    mesh, state, hist = out["mesh"], out["state"], out["history"]
+    check(mesh is not None and tuple(mesh.shape) == (1, 1), f"launch.train ran off the mesh: {mesh}")
+    losses = [h["loss"] for h in hist]
+    failures = []
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        failures.append(f"mesh main path: losses {losses} not finite and falling")
+    params = dict(state.params.named_parameters())
+    off = sorted(k for k, p in params.items() if not on_mesh(p, mesh))
+    if off or off_grads:
+        failures.append(f"not DTensors on the mesh: parameters {off[:4]}, gradients {sorted(off_grads)[:4]}")
+    del state, out
+    return {"losses": losses, "step_ms": [h["ms"] for h in hist],
+            "median_step_ms": statistics.median(h["ms"] for h in hist[MESH_MEDIAN_FROM:]),
+            "peak_device_bytes": peak, "main_s": wall_s, "parameters_checked": len(params),
+            "all_dtensors_on_mesh": not (off or off_grads)}, failures
+
+
+def mesh_against_plain(mesh) -> tuple[dict, list]:
+    """MESH_HELD_STEPS steps from seed TRAIN_SEED on the mesh and off it,
+    then MESH_TURNS steps of each in turns and one of each profiled."""
+    from repro_torch.dist.sharding import make_plan
+
+    args = launch_train.parse_args(MESH_TRAIN_ARGS)
+    cfg, _, opt, _, pipe = launch_train.build(args)
+    cfg = dataclasses.replace(cfg, remat=True)
+    plan = make_plan(mesh, cfg)
+    states, steps, losses = {}, {}, {}
+    for name, pl in (("plain", None), ("mesh", plan)):
+        kw = {} if pl is None else {"plan": pl}
+        states[name] = init_train_state(cfg, opt, generator=torch.Generator("cuda").manual_seed(TRAIN_SEED),
+                                        device="cuda", **kw)
+        steps[name] = make_train_step(cfg, opt, *([] if pl is None else [pl]), num_microbatches=args.microbatches,
+                                      attn_chunk=args.attn_chunk)
+        losses[name] = [float(steps[name](states[name], pipe.batch(i))[1]["loss"]) for i in range(MESH_HELD_STEPS)]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses["mesh"], losses["plain"]))
+    gaps = device_param_gaps(states["mesh"].params, states["plain"].params)
+    worst = max(gaps, key=gaps.get)
+    failures = []
+    if loss_gap > TOL_MESH:
+        failures.append(f"mesh against plain: losses {losses} gap {loss_gap}")
+    if gaps[worst] > TOL_MESH:
+        failures.append(f"mesh against plain: parameter {worst} gap {gaps[worst]}")
+    batch = pipe.batch(MESH_HELD_STEPS)
+    turns = {"plain": [], "mesh": []}
+    for _ in range(MESH_TURNS):
+        for name in ("plain", "mesh"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(steps[name](states[name], batch)[1]["loss"])
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    profile = device_profile(lambda: steps["mesh"](states["mesh"], batch), 1)  # the plain step's: phase o's
+    profile.pop("top", None)
+    del states
+    return {"held_steps": MESH_HELD_STEPS, "losses": losses, "max_loss_rel_gap": loss_gap,
+            "max_param_rel_gap": gaps[worst], "worst_leaf": worst, "tol": TOL_MESH,
+            "step_ms_in_turns": turns, "mesh_step_profile": profile}, failures
+
+
+def device_param_gaps(mesh_params, plain_params) -> dict[str, float]:
+    """Per parameter (the port's names): max |mesh - plain| over the
+    largest |plain|, on the card (the mesh's DTensors gathered whole)."""
+    from repro_torch.dist.sharding import full
+
+    plain = dict(plain_params.named_parameters())
+    out = {}
+    for k, p in mesh_params.named_parameters():
+        want = plain[k].detach()
+        out[k] = float((full(p.detach()) - want).abs().max() / want.abs().max().clamp(min=1e-30))
+    return out
+
+
+def mesh_serve_run() -> tuple[dict, list]:
+    """launch.serve.main on the mesh and the plain `serve`, in turns."""
+    cfg = get_config(SERVE_ARCH)
+    runs = {"plain": [], "mesh": []}
+    tokens = {}
+    peaks = {}
+    for _ in range(2):
+        for name in ("plain", "mesh"):
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            if name == "mesh":
+                out: dict = {}
+                check(launch_serve_main(MESH_SERVE_ARGS, out) == 0, "launch.serve.main on the mesh failed")
+                check(out["mesh"] is not None, "launch.serve ran off the mesh")
+            else:
+                out = serve(cfg, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, new_tokens=MESH_SERVE_NEW,
+                            seed=SERVE_SEED, device="cuda")
+            peaks[name] = torch.cuda.max_memory_allocated() - before
+            tokens[name] = out["tokens"].cpu()
+            runs[name].append({"prefill_ms": out["prefill_s"] * 1e3,
+                               "decode_ms_per_step": out["decode_s"] * 1e3 / (MESH_SERVE_NEW - 1)})
+            del out
+    failures = []
+    if not torch.equal(tokens["mesh"], tokens["plain"]):
+        failures.append("mesh serving: greedy tokens differ from the plain path's")
+    return {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "new_tokens": MESH_SERVE_NEW, "in_turns": runs,
+            "peak_device_bytes": peaks, "tokens_equal": not failures,
+            "continuation_ids": tokens["mesh"][0, :12].tolist()}, failures
+
+
+def mesh_phase(serve_main_path: dict | None, train_main_path: dict | None) -> None:
+    """Phase p: the LM stack's mesh path on a one-rank NCCL group (no
+    decomposition kernel on it: the counters stay 0), beside phase n's and
+    o's main paths where given.  A failure of the group or the mesh fails
+    the run: nothing here falls back to the plain path."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    phase_t0 = time.perf_counter()
+    reset_launches()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_host_mesh(1, 1)
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+              and mesh.mesh_dim_names == ("data", "model"), f"make_host_mesh(1, 1) gave {mesh}")
+        parts_s = {}
+        t0 = time.perf_counter()
+        train, failures = mesh_train_run()
+        parts_s["train"] = time.perf_counter() - t0
+        held, f = mesh_against_plain(mesh)
+        parts_s["held_and_turns"] = time.perf_counter() - t0 - parts_s["train"]
+        failures += f
+        served_, f = mesh_serve_run()
+        parts_s["serve"] = time.perf_counter() - t0 - parts_s["train"] - parts_s["held_and_turns"]
+        failures += f
+    finally:
+        dist.destroy_process_group()
+    launches = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
+    if launches != (0, 0, 0):
+        failures.append(f"the mesh path launched decomposition kernels: {launches}")
+    beside = None if train_main_path is None else _beside(serve_main_path, train_main_path)
+    emit({"phase": "p", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
+          "parts_s": parts_s, "mesh": [1, 1], "train_main_path": train, "held_to_plain": held, "serve": served_,
+          "beside_phases_n_o": beside, "decomposition_kernel_launches": list(launches), "failures": failures})
+    check(not failures, "; ".join(failures))
+
+
+def _beside(serve_main_path: dict, train_main_path: dict) -> dict:
+    """Phase o's and phase n's numbers of this run, for phase p's line."""
+    prof_o = train_main_path["profile"]
+    return {"phase_o_median_step_ms": train_main_path["median_step_ms"],
+              "phase_o_device_ms": prof_o["device_ms"], "phase_o_idle_share": prof_o["device_idle_share"],
+              "phase_o_peak_device_bytes": train_main_path["peak_device_bytes"],
+              "phase_n_prefill_ms": serve_main_path["prefill_ms"],
+              "phase_n_decode_ms_per_step": serve_main_path["decode_ms_per_step"],
+              "phase_n_decode_device_ms": serve_main_path["profile"]["decode_step"]["device_ms"],
+              "phase_n_peak_device_bytes": serve_main_path["peak_device_bytes"]}
 
 
 if __name__ == "__main__":

@@ -1,8 +1,12 @@
-"""Carry state between the reference package and the port, through numpy.
+"""Carry state between the reference package and the port, through numpy,
+and place the LM stack's state on a mesh.
 
 Nothing here imports the reference: its arrays arrive as numpy (e.g.
 `np.asarray(jax_array)`, `dataclasses.asdict(plan)`), and the port's state
-leaves as numpy.
+leaves as numpy.  `distribute_params`, `distribute_train_state` and
+`distribute_caches` turn a whole tree that every rank holds alike into
+DTensors at the spec rules' placements (`repro_torch.dist.sharding`): the
+counterpart of the reference's `jax.device_put(tree, shardings)`.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ from .tucker.hooi import TuckerState
 
 __all__ = ["factors_from_numpy", "cores_from_numpy", "plan_from_numpy", "config_from_reference",
            "cpstate_to_numpy", "tuckerstate_to_numpy", "ttstate_to_numpy", "params_from_numpy",
-           "caches_from_numpy", "caches_to_numpy", "train_state_from_numpy", "train_state_to_numpy"]
+           "caches_from_numpy", "caches_to_numpy", "train_state_from_numpy", "train_state_to_numpy",
+           "distribute_params", "distribute_train_state", "distribute_caches"]
 
 #: Fields of the reference's configuration that only its TPU VMEM model
 #: reads (resident factor tiles, double buffering); the port's kernels
@@ -280,8 +285,10 @@ def train_state_from_numpy(state, cfg, device: str | torch.device):
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-    """bfloat16 as float32, exactly."""
-    t = t.detach()
+    """bfloat16 as float32, exactly; a DTensor gathered whole."""
+    from .dist.sharding import full
+
+    t = full(t.detach())
     return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
 
 
@@ -309,3 +316,73 @@ def train_state_to_numpy(state, cfg) -> dict:
     opt = {k: (_stacked_to_numpy(v) if k != "step" else _numpy(v)) for k, v in state.opt.items()}
     return {"params": _stacked_to_numpy(master_leaves(state.params, cfg)), "opt": opt,
             "rng": state.rng.get_state().numpy()}
+
+
+# ---------------------------------------------------------------------------
+# The LM stack on a mesh
+# ---------------------------------------------------------------------------
+
+
+def distribute_params(params, plan):
+    """Replace every parameter of a `Params` tree, in place, by a DTensor at
+    its `param_pspecs` placement (divisibility-filtered): each rank keeps
+    its shards of the whole tensor it holds, nothing is communicated.
+    Returns `params`."""
+    from torch import nn
+
+    from .dist.sharding import param_pspecs, place
+
+    specs = param_pspecs(params, plan)
+    for mod_name, mod in params.named_modules():
+        for name, p in list(mod._parameters.items()):
+            full_name = f"{mod_name}.{name}" if mod_name else name
+            mod._parameters[name] = nn.Parameter(place(p.detach(), specs[full_name], plan), requires_grad=False)
+    return params
+
+
+def _place_tree(tree, specs, plan):
+    """`tree` (dicts, lists, tensors) placed leaf by leaf by the matching
+    spec of `specs` (the same structure, a `PartitionSpec` at each leaf)."""
+    from .dist.sharding import PartitionSpec, place
+
+    if isinstance(specs, PartitionSpec):
+        return place(tree, specs, plan)
+    if isinstance(tree, dict):
+        return {k: _place_tree(v, specs[k], plan) for k, v in tree.items()}
+    return [_place_tree(v, s, plan) for v, s in zip(tree, specs)]
+
+
+def train_state_pspecs(state, cfg, plan, opt_cfg) -> dict:
+    """{"params": by the port's names, "opt": `opt_pspecs` (and "ef" as the
+    parameters)} for a `TrainState`'s tree, the reference's
+    `shardings_of` (launch/train.py) before its NamedShardings."""
+    from .dist.sharding import param_pspecs
+    from .train.optimizer import opt_pspecs
+    from .train.stacks import reference_leaves
+    from .train.train_step import master_leaves
+
+    pspecs = param_pspecs(state.params, plan)
+    leaf_specs = reference_leaves(pspecs, cfg.period)
+    ospecs = opt_pspecs(master_leaves(state.params, cfg), leaf_specs, opt_cfg)
+    if "ef" in state.opt:  # the error-feedback residual shards like the parameters
+        ospecs["ef"] = leaf_specs
+    return {"params": pspecs, "opt": ospecs}
+
+
+def distribute_train_state(state, cfg, plan, opt_cfg):
+    """A whole `TrainState` that every rank holds alike, placed on the mesh
+    in place: the parameters by `param_pspecs`, the moments by
+    `opt_pspecs`, the compression residual like the parameters, the step
+    replicated.  Returns `state`."""
+    specs = train_state_pspecs(state, cfg, plan, opt_cfg)
+    state.opt = _place_tree(state.opt, specs["opt"], plan)
+    distribute_params(state.params, plan)
+    return state
+
+
+def distribute_caches(caches: list[dict], cfg, plan) -> list[dict]:
+    """Decode caches (one dict per layer) that every rank holds alike,
+    placed by `serve.engine.cache_pspecs`."""
+    from .serve.engine import cache_pspecs
+
+    return _place_tree(caches, cache_pspecs(cfg, plan), plan)

@@ -1,14 +1,15 @@
-"""Distribution layer of the port: the COO stream partitioner, the shards'
-placement (`ShardingPlan`), the single-process collective of the sharded
-planned path, and that path itself (`repro_torch.dist.planned`, imported
-lazily here, since it pulls in the kernel layer).  Counterpart of the
-decomposition half of `repro.dist`; gradient compression and the LM
-stack's spec rules come with the LM stack."""
+"""Distribution layer of the port: the sharding plan (the LM stack's spec
+rules on a `DeviceMesh`, the COO stream partitioner, the shards'
+placement), gradient compression, the single-process collective of the
+sharded planned path, and that path itself (`repro_torch.dist.planned`,
+imported lazily here, since it pulls in the kernel layer).  Counterpart
+of `repro.dist`."""
 from .collective import Replicas, reduce_partials
-from .sharding import ShardingPlan, StreamPartition, partition_stream, stream_imbalance
+from .sharding import NOPLAN, P, PartitionSpec, ShardingPlan, StreamPartition, make_plan, partition_stream, \
+    stream_imbalance
 
-__all__ = ["Replicas", "ShardingPlan", "StreamPartition", "partition_stream", "reduce_partials",
-           "stream_imbalance"]
+__all__ = ["NOPLAN", "P", "PartitionSpec", "Replicas", "ShardingPlan", "StreamPartition", "make_plan",
+           "partition_stream", "reduce_partials", "stream_imbalance"]
 
 
 def __getattr__(name):

@@ -24,7 +24,8 @@ _EF_KEY = "ef"
 
 
 def _zeros_f32(t: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    """float32 zeros like `t` (a DTensor's keep its placements)."""
+    return torch.zeros_like(t, dtype=torch.float32)
 
 
 def init_error_feedback(opt_state: dict, params: dict) -> dict:

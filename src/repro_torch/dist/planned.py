@@ -85,13 +85,15 @@ def shard_plan(devices: int | Sequence[str | torch.device] | None = None) -> Sha
                 f"{'is' if have == 1 else 'are'} available; to run several shards on fewer "
                 f"devices, pass a sequence of devices, e.g. shard_plan(['cuda:0'] * 4) or "
                 f"shard_plan(['cpu'] * 4)")
-        return ShardingPlan(tuple(torch.device("cuda", d) for d in range(n)))
+        return ShardingPlan(devices=tuple(torch.device("cuda", d) for d in range(n)))
     devs = tuple(torch.device(d) for d in devices)
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     for d in devs:
         if d.type == "cuda" and (have == 0 or (d.index or 0) >= have):
             raise ValueError(f"{d} was requested but torch sees {have} CUDA devices")
-    return ShardingPlan(tuple(resolve_device(d) for d in devs))
+    if not devs:
+        raise ValueError("a ShardingPlan needs at least one device")
+    return ShardingPlan(devices=tuple(resolve_device(d) for d in devs))
 
 
 def shard_makespan_report(ws: Any) -> dict:

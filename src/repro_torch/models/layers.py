@@ -14,6 +14,10 @@ Conventions (used by every model module of the port):
     the train step takes gradients against a tree of plain dicts holding
     cast copies of them (`train/train_step.py`), which every function here
     reads as it reads `Params`.
+  * On a mesh the tensors are DTensors; a table built here from shapes
+    alone (RoPE frequencies, sinusoid dims) is made a replicated DTensor
+    beside them (`dist.sharding.replicated`), since DTensor ops refuse
+    plain tensors.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Params", "dtype_of", "dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
+from ..dist.sharding import replicated
+
+__all__ = ["Params", "tree_of", "dtype_of", "dense_init", "embed_init", "rmsnorm_init", "rmsnorm",
            "layernorm_init", "layernorm", "norm_init", "norm_apply", "linear_init", "linear",
            "embed", "rope_angles", "apply_rope", "sinusoid_positions", "sinusoid_rows", "GLU_ACTS",
            "is_glu", "gelu", "mlp_init", "mlp"]
@@ -45,6 +51,28 @@ class Params(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+def tree_of(named: dict):
+    """Tensors by dotted name as the nested tree the model functions read:
+    dicts, and lists where every key is a layer index."""
+    root: dict = {}
+    for name, t in named.items():
+        node = root
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def fix(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: fix(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return fix(root)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -160,7 +188,7 @@ def rope_angles(positions: torch.Tensor, head_dim: int, theta: float) -> tuple[t
     """(pos..., hd/2) cos/sin tables, fp32."""
     half = head_dim // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
-    ang = positions.float()[..., None] * freqs  # (..., half)
+    ang = positions.float()[..., None] * replicated(freqs, positions)  # (..., half)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -187,7 +215,7 @@ def sinusoid_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
     """Rows `pos` (any int shape) of `sinusoid_positions(n, d)`, computed on
     `pos`'s device in float64 as the table is: the same float32 numbers
     without building the table."""
-    dim = torch.arange(d // 2, dtype=torch.float64, device=pos.device)
+    dim = replicated(torch.arange(d // 2, dtype=torch.float64, device=pos.device), pos)
     ang = pos.double()[..., None] / torch.pow(10_000.0, 2 * dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()
 

@@ -1,5 +1,5 @@
 """Mixture-of-Experts with the paper's memory-controller dispatch.  The port
-of `repro.models.moe`, without its sharding constraints.
+of `repro.models.moe`.
 
 MoE token->expert dispatch is an spMTTKRP-shaped problem: a sparse
 (token, expert) assignment stream drives gathers of dense rows.  The two
@@ -19,12 +19,21 @@ Nothing here sums in an order the hardware picks: the dropped rows of a
 dispatch go to one spare row that is sliced off, and the combine un-permutes
 each token's k weighted rows into (Tg, k, D) and sums over k (the
 reference's scatter-add would be an atomic `index_add_` on the card).
+
+Sharding (a plan with a mesh): tokens arrive grouped (G, Tg, D) with G on
+the data axes, and the dispatch buffers (G, E, C, D) are constrained to G
+on the data axes, replicated over the model axis, as in the reference.
+The router's top-k sort and the dispatch / combine index work (sorts,
+gathers, scatters with index tensors of their own) run on each rank's
+local groups (`local_call`); the expert GEMMs between them are DTensor
+ops, F sharded over the model axis.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import NOPLAN, P, ShardingPlan, local_call, shard, valid_spec
 from .layers import GLU_ACTS, Params, dense_init, gelu, is_glu
 
 __all__ = ["moe_init", "router_topk", "capacity", "moe_apply", "dispatch_remap", "combine_remap",
@@ -52,16 +61,25 @@ def capacity(tokens_per_group: int, moe_cfg) -> int:
     return max(8, ((c + 7) // 8) * 8)
 
 
-def router_topk(p: Params, x: torch.Tensor, moe_cfg):
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(weights, ids) of the k largest probabilities, ties to the lower id."""
+    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return w[..., :k], ids[..., :k]
+
+
+def router_topk(p: Params, x: torch.Tensor, moe_cfg, plan: ShardingPlan = NOPLAN):
     """Router: softmax over experts, take top-k.  x: (..., Tg, D).
     Returns (expert_ids (..., Tg, k), combine_w (..., Tg, k), probs, aux).
 
     Ties go to the lower expert id, as `jax.lax.top_k` breaks them: a stable
-    descending sort (`torch.topk` promises no order among equal values)."""
+    descending sort (`torch.topk` promises no order among equal values).
+    On a mesh the sort runs on each rank's groups, experts whole."""
     logits = x.float() @ p["router"].float()  # (..., Tg, E)
+    if plan.mesh is not None:
+        logits = shard(logits, P(plan.dp, *([None] * (logits.dim() - 1))), plan)
     probs = torch.softmax(logits, dim=-1)
-    w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    w, ids = w[..., :moe_cfg.top_k], ids[..., :moe_cfg.top_k]
+    grp = valid_spec(tuple(probs.shape), P(plan.dp, *([None] * (probs.dim() - 1))), plan.mesh)
+    w, ids = local_call(lambda pr: _top_k(pr, moe_cfg.top_k), plan, [probs], [grp], (grp, grp))
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)  # renormalize over k
     # Aux losses: load-balance (Switch) + router z-loss.
     E = moe_cfg.num_experts
@@ -173,22 +191,43 @@ def experts_ffn(p: Params, buffers: torch.Tensor, act: str) -> torch.Tensor:
     return torch.einsum("...ecf,efd->...ecd", h, p["wd"].to(dt))
 
 
-def moe_apply(p: Params, x: torch.Tensor, moe_cfg, act: str):
+def moe_apply(p: Params, x: torch.Tensor, moe_cfg, act: str, plan: ShardingPlan = NOPLAN):
     """Full MoE layer on (G, Tg, D) grouped tokens.  Dispatch mode per
-    moe_cfg.dispatch.  Returns (out (G, Tg, D), aux)."""
+    moe_cfg.dispatch.  Returns (out (G, Tg, D), aux).
+
+    On a mesh the dispatch and the combine run on each rank's local groups
+    (`local_call`), and the (G, E, C, D) buffers and expert outputs are
+    constrained to G on the data axes, as in the reference."""
     G, Tg, D = x.shape
     E = moe_cfg.num_experts
     C = capacity(Tg, moe_cfg)
-    ids, w, _, aux = router_topk(p, x, moe_cfg)
+    ids, w, _, aux = router_topk(p, x, moe_cfg, plan)
+
+    def grp(ndim: int, shape=None):
+        spec = P(plan.dp, *([None] * (ndim - 1)))
+        return spec if shape is None else valid_spec(shape, spec, plan.mesh)
+
+    g3 = grp(3, (G, Tg, D))
+    g4 = grp(4, (G, E, C, D))
     if moe_cfg.dispatch == "remap":
-        buffers, meta = dispatch_remap(x, ids, E, C)
-        out_e = experts_ffn(p, buffers, act)
-        out = combine_remap(out_e, meta, w.reshape(G, -1), Tg)
+        meta: dict = {}
+
+        def dispatch(xl, il):
+            buffers, m = dispatch_remap(xl, il, E, C)
+            meta.update(m)
+            return buffers
+
+        buffers = local_call(dispatch, plan, [x, ids], [g3, g3], g4)
+        buffers = shard(buffers, grp(4), plan)  # (G, E, C, D): G stays on dp
+        out_e = shard(experts_ffn(p, buffers, act), grp(4), plan)
+        out = local_call(lambda oe, wl: combine_remap(oe, meta, wl.reshape(wl.shape[0], -1), Tg), plan,
+                         [out_e, w], [g4, g3], g3)
     elif moe_cfg.dispatch == "onehot":
-        dispatch, combine = dispatch_onehot(x, ids, w, E, C)
-        buffers = torch.einsum("gtec,gtd->gecd", dispatch, x)
-        out_e = experts_ffn(p, buffers, act)
+        dispatch, combine = local_call(lambda xl, il, wl: dispatch_onehot(xl, il, wl, E, C), plan,
+                                       [x, ids, w], [g3, g3, g3], (g4, g4))
+        buffers = shard(torch.einsum("gtec,gtd->gecd", dispatch, x), grp(4), plan)
+        out_e = shard(experts_ffn(p, buffers, act), grp(4), plan)
         out = torch.einsum("gtec,gecd->gtd", combine.to(out_e.dtype), out_e)
     else:
         raise ValueError(f"unknown dispatch {moe_cfg.dispatch!r}")
-    return out, aux
+    return shard(out, grp(3), plan), aux

@@ -17,13 +17,21 @@ Layout: ``<dir>/step_<n>/``
     outstanding save).
   * **Restore onto devices**: `restore(step, device=...)` returns the
     leaves as tensors on `device` (the CPU by default); `restore(step,
-    shardings=...)`, the elastic restore, takes a tree of devices of the
-    saved tree's structure and puts each leaf on its device, whatever
-    devices saved it (the reference's tree of shardings).
+    shardings=...)`, the elastic restore, takes a tree of the saved tree's
+    structure whose leaves are devices or `NamedSharding`s (a mesh and a
+    spec) and puts each leaf on its device, or on the mesh at its spec's
+    placements (each rank keeps its shards), whatever mesh or devices
+    saved it (the reference's tree of shardings).
 
 `save_train_state` / `restore_train_state` carry the LM stack's
 `TrainState` (parameters, optimizer moments, step, compression residual)
-through a manager.
+through a manager.  On a mesh every rank calls them: the save gathers each
+DTensor leaf whole (so the leaf files are the reference's whatever the
+mesh), one leaf at a time, each copied to the host before the next is
+gathered (a rank never holds more than one whole leaf on its device
+beside its shards), and rank 0 writes; the restore reads the whole leaves
+on every rank and copies each rank's shards into the state at its own
+placements, so a checkpoint saved on one mesh restores onto another.
 
 Leaves are torch tensors (copied to numpy), numpy arrays or
 Python scalars.  The tree's structure, nested dicts (string or integer
@@ -40,6 +48,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..dist.sharding import NamedSharding, full, is_dtensor, place
 
 __all__ = ["CheckpointManager", "save_train_state", "restore_train_state"]
 
@@ -96,7 +106,10 @@ class CheckpointManager:
         on a thread with blocking=False."""
         leaves: list = []
         structure = _flatten(tree, leaves)
-        host = [_host(x) for x in leaves]
+        self._save_host(step, structure, [_host(x) for x in leaves], blocking)
+
+    def _save_host(self, step: int, structure: Any, host: list[np.ndarray], blocking: bool) -> None:
+        """`save` of leaves already copied to host memory (owned here)."""
         meta = {
             "step": int(step),
             "tree": structure,
@@ -176,12 +189,19 @@ class CheckpointManager:
                 raise ValueError(
                     f"checkpoint step {step} tree structure does not match the requested "
                     f"shardings ({meta['nleaves']} saved leaves vs {len(devs)})")
-            devs = [torch.device(x) for x in devs]
+            devs = [x if isinstance(x, NamedSharding) else torch.device(x) for x in devs]
         else:
             devs = [torch.device(device) if device is not None else torch.device("cpu")] * meta["nleaves"]
-        leaves = [torch.from_numpy(np.load(os.path.join(d, f"arr_{i}.npy"))).to(dev)
+        leaves = [_onto(torch.from_numpy(np.load(os.path.join(d, f"arr_{i}.npy"))), dev)
                   for i, dev in enumerate(devs)]
         return step, _unflatten(meta["tree"], leaves)
+
+
+def _onto(t: torch.Tensor, where) -> torch.Tensor:
+    """A whole leaf on a device, or on a mesh at a `NamedSharding`'s spec."""
+    if isinstance(where, NamedSharding):
+        return place(t.to(where.device()), where.spec, where.plan())
+    return t.to(where)
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +209,16 @@ class CheckpointManager:
 # ---------------------------------------------------------------------------
 
 
-def _saveable(t: torch.Tensor) -> torch.Tensor:
-    """bfloat16 as float32 (exact; numpy has no bfloat16)."""
-    return t.float() if t.dtype == torch.bfloat16 else t
+def _host_whole(t: torch.Tensor, keep: bool) -> np.ndarray | None:
+    """A host copy of the whole leaf `t` (a DTensor gathered: every rank
+    takes part), bfloat16 as float32 (exact; numpy has no bfloat16); None
+    where this rank does not keep it.  The gathered tensor is freed on
+    return, before the caller gathers the next leaf."""
+    whole = full(t.detach())
+    if not keep:
+        return None
+    host = whole.cpu()
+    return _host(host.float() if host.dtype == torch.bfloat16 else host)
 
 
 def _map(fn, tree):
@@ -217,16 +244,33 @@ def _copy_into(dst, src, where: str = "") -> None:
         if tuple(dst.shape) != tuple(src.shape):
             raise ValueError(f"checkpoint{where}: shape {tuple(src.shape)} where the state has {tuple(dst.shape)}")
         with torch.no_grad():
-            dst.copy_(src)
+            if is_dtensor(dst):  # this rank's shards of the whole leaf, at dst's placements
+                from torch.distributed.tensor import distribute_tensor
+
+                local = dst.to_local()
+                local.copy_(distribute_tensor(src.to(local.device, dst.dtype), dst.device_mesh, dst.placements,
+                                              src_data_rank=None).to_local())
+            else:
+                dst.copy_(src)
 
 
 def save_train_state(mgr: CheckpointManager, step: int, state, blocking: bool = True) -> None:
     """Save a `train_step.TrainState`: the master parameters by name, the
     optimizer state (m, v or factored r/c, step, and the compression
-    residual "ef" where there is one) and the generator's state."""
-    tree = {"params": {k: p.detach() for k, p in state.params.named_parameters()},
-            "opt": _map(_saveable, state.opt), "rng": state.rng.get_state()}
-    mgr.save(step, tree, blocking=blocking)
+    residual "ef" where there is one) and the generator's state.  On a mesh
+    every rank gathers the leaves whole, one at a time, and rank 0 keeps
+    their host copies and writes them."""
+    keep = True
+    if any(is_dtensor(p) for p in state.params.parameters()):
+        import torch.distributed as dist
+
+        keep = dist.get_rank() == 0
+    tree = {"params": {k: _host_whole(p, keep) for k, p in state.params.named_parameters()},
+            "opt": _map(lambda t: _host_whole(t, keep), state.opt), "rng": _host(state.rng.get_state())}
+    if keep:
+        leaves: list = []
+        structure = _flatten(tree, leaves)
+        mgr._save_host(step, structure, leaves, blocking)
 
 
 def restore_train_state(mgr: CheckpointManager, state, step: int | None = None) -> int:

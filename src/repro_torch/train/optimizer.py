@@ -19,17 +19,28 @@ graph's leaf updates, which eager PyTorch already runs one after another.
 more dimensions and at least 2^28 elements in that many slices (the
 reference's rule), bounding the float32 working set of an expert stack;
 the result is bit for bit the unsliced one.
+
+On a mesh the tensors are DTensors: `opt_pspecs` gives the moments' specs
+(the parameters', and for a factored moment its row and column specs, as
+the reference's), `shardings=` pins each gradient to its parameter's
+placements first, and a tensor whose gradient and moments share its
+layout is updated on each rank's own shards (the math is elementwise);
+a factored moment's row and column means are DTensor reductions, each new
+value written back at its tensor's own placements.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import operator
 
 import torch
 
+from ..dist.sharding import P, full, is_dtensor
 from .stacks import Leaf, map_tree, members, rank
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "lr_at", "global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "opt_pspecs", "lr_at", "global_norm"]
 
 #: The smallest tensor `update_slices` slices (the reference's 2^28).
 SLICE_MIN_ELEMENTS = 1 << 28
@@ -101,10 +112,44 @@ def adamw_init(params: dict, cfg: AdamWConfig) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def opt_pspecs(params: dict, p_specs: dict, cfg: AdamWConfig) -> dict:
+    """The spec tree of `adamw_init`'s state, mirroring its structure: m and
+    v take the parameters' specs (`p_specs`, a tree of the reference's leaf
+    names like `params`, a stack a list of per-layer specs); a factored v
+    takes {"r": the spec without its last entry, "c": without its
+    second-to-last}.  A stack of vectors keeps one factored pair, its r
+    over the layers (that entry replicated), its c the layers' last
+    entry."""
+
+    def rc(spec, ndim: int) -> dict:
+        e = list(spec) + [None] * (ndim - len(spec))
+        return {"r": P(*e[:-1]), "c": P(*e[:-2], e[-1])}
+
+    def v_spec(leaf, spec):
+        if not (cfg.factored_v and rank(leaf) >= 2):
+            return spec
+        if _small_stack(leaf):
+            layer = list(spec[0]) + [None] * (leaf[0].dim() - len(spec[0]))
+            return {"r": P(None, *layer[:-1]), "c": P(layer[-1])}
+        if isinstance(leaf, list):
+            return [rc(s, t.dim()) for s, t in zip(spec, leaf)]
+        return rc(spec, leaf.dim())
+
+    return {"m": p_specs, "v": {k: v_spec(params[k], p_specs[k]) for k in params}, "step": P()}
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in float32."""
-    sums = [sum(torch.sum(torch.square(t.float())) for t in members(leaf)) for leaf in tree.values()]
-    return torch.sqrt(sum(sums))
+    """sqrt of the sum of squares of every element, in float32.  Added
+    left to right from the first term (`_total`): DTensor partial sums stay
+    partial until the square root, one reduction in all."""
+    sums = [_total(torch.sum(torch.square(t.float())) for t in members(leaf)) for leaf in tree.values()]
+    return torch.sqrt(_total(sums))
+
+
+def _total(terms) -> torch.Tensor:
+    """((a + b) + c) + ...: Python's `sum` without its leading 0 (an int
+    plus a partial sum would reduce it)."""
+    return functools.reduce(operator.add, terms)
 
 
 class _Step:
@@ -141,8 +186,24 @@ class _Step:
         newp = p.float() - self.lr * upd
         return newp.to(p.dtype), mf.to(m.dtype), new_v
 
+    def on_local(self) -> "_Step":
+        """This step with its scalars whole on each rank, for updating local
+        shards (made once)."""
+        if getattr(self, "_local", None) is None:
+            out = object.__new__(_Step)
+            out.cfg, out._local = self.cfg, None
+            out.scale, out.lr, out.c1, out.c2 = (full(x) for x in (self.scale, self.lr, self.c1, self.c2))
+            self._local = out
+        return self._local
+
     def apply(self, p, g, m, v, decay: bool) -> None:
-        """Update one tensor in place, in slices where update_slices asks."""
+        """Update one tensor in place, in slices where update_slices asks.
+        DTensors of one layout (an unfactored moment) update elementwise on
+        each rank's own shards."""
+        if is_dtensor(p) and not isinstance(v, dict) and \
+                len({(x.device_mesh, tuple(x.placements)) for x in (p, g, m, v)}) == 1:
+            self.on_local().apply(p.to_local(), g.to_local(), m.to_local(), v.to_local(), decay)
+            return
         n = self.cfg.update_slices
         if n > 1 and p.dim() >= 3 and p.shape[0] % n == 0 and p.numel() >= SLICE_MIN_ELEMENTS:
             k = p.shape[0] // n
@@ -156,21 +217,36 @@ class _Step:
     @staticmethod
     def _write(new, p, m, v) -> None:
         np_, nm, nv = new
-        p.copy_(np_)
-        m.copy_(nm)
+        _copy(p, np_)
+        _copy(m, nm)
         if isinstance(v, dict):
-            v["r"].copy_(nv["r"])
-            v["c"].copy_(nv["c"])
+            _copy(v["r"], nv["r"])
+            _copy(v["c"], nv["c"])
         else:
-            v.copy_(nv)
+            _copy(v, nv)
+
+
+def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst.copy_(src), a DTensor's new value brought to dst's placements
+    first (it keeps its sharding)."""
+    if is_dtensor(dst) and tuple(src.placements) != tuple(dst.placements):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 @torch.no_grad()
-def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig) -> tuple[dict, dict, dict]:
+def adamw_update(params: dict, grads: dict, state: dict, cfg: AdamWConfig,
+                 shardings: dict | None = None) -> tuple[dict, dict, dict]:
     """One AdamW step.  Writes the new parameters and moments into `params`
     and `state` and returns (params, new state, metrics {grad_norm, lr}).
     Keys of `state` other than m, v and step (the compression residual
-    "ef") are kept."""
+    "ef") are kept.  `shardings`: on a mesh, a tree like `grads` of DTensor
+    placements, to which each gradient is redistributed first (the
+    reference's re-pinning of the update chain)."""
+    if shardings is not None:
+        grads = {k: [g.redistribute(g.device_mesh, s) for g, s in zip(members(leaf), members(shardings[k]))]
+                 if isinstance(leaf, list) else leaf.redistribute(leaf.device_mesh, shardings[k])
+                 for k, leaf in grads.items()}
     step = state["step"] + 1
     gnorm = global_norm(grads)
     st = _Step(cfg, step, gnorm)

@@ -17,6 +17,7 @@ from repro_torch.core import coo as tcoo
 from repro_torch.core.cp_als import _normalize, _solve, cp_als
 from repro_torch.core.mttkrp import mttkrp_approach2
 from repro_torch.kernels.ops import make_planned_cp_als
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RANK = 4
 ITERS = 3

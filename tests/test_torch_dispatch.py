@@ -20,6 +20,7 @@ from repro_torch.core.memctrl import DMAEngineConfig, MemoryControllerConfig
 from repro_torch.obs import metrics
 from repro_torch.tt import tt_als
 from repro_torch.tucker import tucker_hooi
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 # float32 sums over the same terms in another order.

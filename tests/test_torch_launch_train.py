@@ -117,9 +117,11 @@ def test_failure_without_restarts_left(capsys):
 
 
 def test_mesh_flags_raise():
-    with pytest.raises(ValueError, match="one device"):
+    """A mesh of more than one device without a process group (no
+    torchrun): the launcher cannot start its ranks itself."""
+    with pytest.raises(ValueError, match="needs as many ranks"):
         launch_train.main(ARGS + ["--mesh-data", "2"])
-    with pytest.raises(ValueError, match="one device"):
+    with pytest.raises(ValueError, match="needs as many ranks"):
         launch_train.main(ARGS + ["--mesh-model", "4"])
 
 

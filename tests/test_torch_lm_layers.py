@@ -17,6 +17,7 @@ from repro.models import attention as RA, layers as RL, moe as RM, ssm as RS
 from repro_torch.configs import MoEConfig, get_config
 from repro_torch.models import attention as A, layers as L, moe as M, ssm as S
 from repro_torch.models.layers import Params
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # Every output within TOL of the largest |value| of the reference's output.
 TOL = 1e-5

@@ -36,6 +36,7 @@ from repro_torch.kernels.mttkrp import (
 from repro_torch.kernels.ops import make_planned_mttkrp
 from repro_torch.kernels.ref import mttkrp_plan_ref, mttkrp_ref, mttkrp_ref_dense
 from test_torch_remap import assert_plans_equal
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 RANK = 4
 # float32 sums over the same terms taken in another order (the Pallas

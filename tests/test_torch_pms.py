@@ -37,6 +37,7 @@ from repro_torch.kernels.ops import make_planned_cp_als, make_planned_mttkrp
 from repro_torch.obs import metrics
 from repro_torch.tt import make_planned_tt
 from repro_torch.tucker import make_planned_tucker
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURES = ["tiny_tensor", "tensor4d", "tensor5d"]
 SPEC = GPUSpec()

@@ -28,6 +28,7 @@ from repro_torch.core.remap import (
     remap_stable,
     validate_plan,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def to_port(st) -> tcoo.SparseTensor:

@@ -65,6 +65,7 @@ from repro_torch.testing import faults
 from repro_torch.train import CheckpointManager
 from repro_torch.tt import make_planned_tt
 from repro_torch.tucker import make_planned_tucker
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ITERS = 5

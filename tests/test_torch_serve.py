@@ -20,6 +20,7 @@ from repro_torch.convert import caches_from_numpy, caches_to_numpy, params_from_
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import cache_specs, generate, make_decode_step, make_prefill_step
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ARCHS = list_configs()
 B, S, STEPS, CHUNK = 2, 16, 4, 8
@@ -248,7 +249,9 @@ def test_launch_serve_prints_four_lines(capsys):
 
 @pytest.mark.parametrize("mesh", [["--mesh-data", "2"], ["--mesh-model", "2"]])
 def test_launch_serve_refuses_a_mesh(mesh):
-    with pytest.raises(ValueError, match="training slice"):
+    """Without a process group (no torchrun) a mesh of more than one
+    device is refused: the launcher cannot start its ranks itself."""
+    with pytest.raises(ValueError, match="needs as many ranks"):
         launch_serve.main(["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", *mesh])
 
 

@@ -63,6 +63,7 @@ from repro_torch.kernels.ttm import ttmc_blocked
 from repro_torch.obs.calibrate import pms_estimates
 from repro_torch.testing import faults
 from repro_torch.train import CheckpointManager
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SMALL_CFG = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=16, tile_j=16, tile_k=16),
                                    dma=DMAEngineConfig(blk=32))

@@ -39,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.workspace import sharded_layout_bytes
 from repro_torch.obs import metrics
 from repro_torch.tune.cache import config_key
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SMALL_CFG = MemoryControllerConfig(cache=CacheEngineConfig(tile_i=16, tile_j=16, tile_k=16),

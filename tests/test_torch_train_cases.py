@@ -1,5 +1,6 @@
 """The train step's options against the JAX package (`make_train_step`
-with 2 microbatches and float32 accumulation, int8 error feedback on a
+with 2 microbatches and float32 accumulation, fsdp's default bfloat16
+accumulation, int8 error feedback on a
 dense and an MoE arch, bfloat16 compute), and the port's own properties:
 remat off, per layer and grouped give bit-identical losses and gradients;
 1 and 4 microbatches agree as in
@@ -41,6 +42,25 @@ MAX_FLIPPED, TOL_EF_QUANTUM = 0.01, 1e-2
 TOL_LOSS_BF16, TOL_GNORM_BF16, TOL_PARAM_BF16, TOL_EMBED_BF16 = 3e-4, 1e-2, 3e-2, 1e-1
 
 
+# fsdp's default accumulation, bfloat16 (2 microbatches, accum_dtype left to
+# the default in both packages): the accumulated gradient rounds to 8 bits
+# in both, in their own orders, and Adam normalizes it.  Measured on the
+# CPU: grad_norm 6.2e-6 at step 2, parameters 1.75e-4 (blocks.0.mlp.wd),
+# 8.5e-5 (embed), 7.0e-5 (blocks.0.attn.wq), 3.4e-5 (blocks.0.mlp.wu); the
+# others within a third of TOL_PARAM.
+PARAM_TOL_BF16_ACCUM = {"blocks.0.mlp.wd": 6e-4, "embed": 3e-4, "blocks.0.attn.wq": 3e-4, "blocks.0.mlp.wu": 1.5e-4}
+
+
+def test_microbatches_2_bfloat16_accumulation_matches_reference():
+    """fsdp on, accum_dtype not given: both packages accumulate the two
+    microbatches' gradients in bfloat16 (ref train_step.py:86-87)."""
+    kw = dict(num_microbatches=2)
+    run = reference_run("qwen3-0.6b", grads=False, overrides={"fsdp": True}, **kw)
+    steps, final = port_steps(run, **kw)
+    check_steps(run, steps)
+    check_params(run, final, named={(run.arch, k): v for k, v in PARAM_TOL_BF16_ACCUM.items()})
+
+
 def test_microbatches_2_float32_match_reference():
     kw = dict(num_microbatches=2, accum_dtype="float32")
     run = reference_run("qwen3-0.6b", grads=False, **kw)
@@ -55,6 +75,11 @@ def test_compressed_gradients_match_reference(arch):
     steps, final = port_steps(run, compress_grads=True)
     check_steps(run, steps, tol={"grad_norm": TOL_GNORM_INT8})
     check_params(run, final, tol=TOL_PARAM_INT8, named={})
+    check_residuals(run, final)
+
+
+def check_residuals(run, final: dict) -> None:
+    """The error-feedback residuals against the reference's, in quanta."""
     assert sorted(final["ef"]) == sorted(run.final["ef"])
     for name, want in run.final["ef"].items():
         quantum = 2 * np.abs(want).max()  # |residual| <= scale / 2

@@ -140,15 +140,18 @@ def rounded_once(tree, seed: int):
 
 
 def reference_run(arch: str, *, compute_dtype: str | None = None, grads: bool = True, noise_seeds: tuple = (),
-                  **step_kw) -> Run:
+                  overrides: dict | None = None, **step_kw) -> Run:
     """The reference's gradients on the first batch and its 4 jitted steps;
     with `noise_seeds`, again from the initial parameters moved by one
     rounding (`rounded_once`) for each seed, through the same compiled
-    functions, into `Run.spread`."""
+    functions, into `Run.spread`.  `overrides`: fields of the reduced
+    config set in both packages."""
     rcfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
     if compute_dtype:
         rcfg = dataclasses.replace(rcfg, compute_dtype=compute_dtype)
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
+    if overrides:
+        rcfg, cfg = dataclasses.replace(rcfg, **overrides), dataclasses.replace(cfg, **overrides)
     opt = RefAdamW(**OPT)
     state = ref_init(jax.random.PRNGKey(0), rcfg, opt, compress_grads=step_kw.get("compress_grads", False))
     init = jax.tree.map(np.asarray, state)

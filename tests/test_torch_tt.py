@@ -26,6 +26,7 @@ from repro_torch.kernels.ops import _tt_bond_pairs, make_planned_ttcore
 import repro_torch.kernels.ref as ref_module
 from repro_torch.kernels.ref import ttcore_plan_ref, ttcore_ref, ttcore_ref_dense
 from repro_torch.kernels.tt import tt_out_cols, tt_out_pair, ttcore_blocked, ttcore_blocked_plain
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # Largest error allowed relative to each output column's max: float32 sums
 # over the same terms taken in another order (the Pallas kernel's one-hot

@@ -32,6 +32,7 @@ from repro_torch.tt import (
     tt_svd,
 )
 from repro_torch.tt.als import _TT_SVD_DENSE_LIMIT, _validated_tt_ranks
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ITERS = 3
 FIT_TOL = 1e-5  # the ROADMAP's fit bar; float32 sums in another order

@@ -27,6 +27,7 @@ from repro_torch.kernels.ref import ttmc_plan_ref, ttmc_ref
 from repro_torch.kernels.tt import ttcore_blocked
 from repro_torch.kernels.ttm import cols_padded, kron_cols, ttmc_blocked, ttmc_blocked_plain
 from test_torch_remap import assert_plans_equal
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 # Largest error allowed relative to each output column's max: float32 sums
 # over the same terms taken in another order (the Pallas kernel's one-hot

@@ -22,6 +22,7 @@ from repro_torch.tucker import (
     make_planned_tucker,
     tucker_hooi,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ITERS = 3
 FIT_TOL = 1e-5  # the ROADMAP's fit bar; float32 sums in another order

@@ -71,6 +71,7 @@ from repro_torch.tune import (
     roofline_counts,
     sweep_sample,
 )
+from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FIT_TOL = 1e-5  # the ROADMAP's fit bar
 ITERS = 3
