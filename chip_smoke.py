@@ -165,6 +165,21 @@ printing one JSON line:
               the mesh (8 x 512 prompts, 16
               new tokens) and the plain `serve` in turns, tokens equal;
               beside phase o's and phase n's numbers of this run
+  q  dry run  repro_torch.launch.dryrun (no decomposition kernel; the
+              counters stay 0), in a subprocess of its own with
+              PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True, after phase
+              p's NCCL group is gone: phase o's cell (launch.train's step
+              for TRAIN_MAIN_ARGS) on a one-rank fake process group and mesh,
+              its peak within 5% of phase p's mesh peak (the gap to phase
+              o's reported), its arguments' bytes, each rounded to the
+              allocator's 512 bytes, equal to what the same state and batch
+              take on the card; phase n's prefill (8 x 512, cache 576) and
+              decode (8 sequences, cache 576) with bfloat16 parameters,
+              each dry-run peak within 10% of that step's peak on the card;
+              no device memory allocated by any dry run, no process group
+              left; `python -m repro_torch.launch.dryrun --arch qwen3-0.6b
+              --shape decode_32k` as a subprocess (exit 0, its record ok,
+              peak per device beside the card's memory)
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -220,6 +235,7 @@ from repro_torch.core.memctrl import (  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.launch.serve import main as launch_serve_main, serve  # noqa: E402
+from repro_torch.serve.engine import make_decode_step, make_prefill_step  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.convert import train_state_from_numpy, train_state_to_numpy  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
@@ -524,6 +540,22 @@ MESH_SERVE_NEW = 16
 MESH_SERVE_ARGS = ["--arch", SERVE_ARCH, "--batch", str(SERVE_BATCH), "--prompt-len", str(SERVE_PROMPT),
                    "--new-tokens", str(MESH_SERVE_NEW), "--seed", str(SERVE_SEED), "--mesh-data", "1",
                    "--mesh-model", "1"]
+# Phase q: the dry run (repro_torch.launch.dryrun), in a subprocess of its
+# own under expandable segments (every block split to its 512-byte-rounded
+# request, so memory_allocated() gains exactly the rounded sizes).  Phase
+# o's cell on a one-rank fake mesh held within TOL_DRY_TRAIN of phase p's
+# mesh peak, its arguments equal to the state's rounded bytes on the card;
+# phase n's prefill (SERVE_BATCH x SERVE_PROMPT, cache SERVE_PROMPT +
+# SERVE_NEW) and decode (SERVE_BATCH sequences against that cache) in
+# bfloat16 within TOL_DRY_SERVE of one step on the card; DRY_CELLS through
+# `python -m repro_torch.launch.dryrun` as a user runs it, each within
+# DRY_CELL_TIMEOUT_S (train_4k, 48 s of phase q on an H100's host, is left
+# out: with it the whole script took 1,054 s of its 1,200).
+TOL_DRY_TRAIN, TOL_DRY_SERVE = 0.05, 0.10
+ALLOC_ROUND = 512
+DRY_CELLS = (("qwen3-0.6b", "decode_32k"),)
+DRY_CELL_TIMEOUT_S, DRY_PHASE_TIMEOUT_S = 120, 300
+DRY_ALLOC_CONF = "expandable_segments:True"
 
 
 def emit(obj: dict) -> None:
@@ -849,7 +881,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_main_path = serving_phase()
     train_main_path = training_phase()
-    mesh_phase(serve_main_path, train_main_path)
+    mesh_peak = mesh_phase(serve_main_path, train_main_path)
+    dryrun_phase(train_main_path["peak_device_bytes"], mesh_peak)
 
     emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
@@ -2796,11 +2829,12 @@ def mesh_serve_run() -> tuple[dict, list]:
             "continuation_ids": tokens["mesh"][0, :12].tolist()}, failures
 
 
-def mesh_phase(serve_main_path: dict | None, train_main_path: dict | None) -> None:
+def mesh_phase(serve_main_path: dict | None, train_main_path: dict | None) -> int:
     """Phase p: the LM stack's mesh path on a one-rank NCCL group (no
     decomposition kernel on it: the counters stay 0), beside phase n's and
     o's main paths where given.  A failure of the group or the mesh fails
-    the run: nothing here falls back to the plain path."""
+    the run: nothing here falls back to the plain path.  Returns the mesh
+    run's peak device bytes (phase q's bar)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -2833,6 +2867,7 @@ def mesh_phase(serve_main_path: dict | None, train_main_path: dict | None) -> No
           "parts_s": parts_s, "mesh": [1, 1], "train_main_path": train, "held_to_plain": held, "serve": served_,
           "beside_phases_n_o": beside, "decomposition_kernel_launches": list(launches), "failures": failures})
     check(not failures, "; ".join(failures))
+    return train["peak_device_bytes"]
 
 
 def _beside(serve_main_path: dict, train_main_path: dict) -> dict:
@@ -2847,5 +2882,183 @@ def _beside(serve_main_path: dict, train_main_path: dict) -> dict:
               "phase_n_peak_device_bytes": serve_main_path["peak_device_bytes"]}
 
 
+def dryrun_phase(phase_o_peak: int | None, phase_p_peak: int | None) -> None:
+    """Phase q: the dry run, in a subprocess (`dryrun_child`) that prints
+    the phase's line; a failed check there fails the run here."""
+    reset_launches()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=DRY_ALLOC_CONF)
+    bars = json.dumps({"phase_o_peak_device_bytes": phase_o_peak, "phase_p_peak_device_bytes": phase_p_peak})
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dryrun-phase", bars], env=env,
+                          timeout=DRY_PHASE_TIMEOUT_S)
+    check(proc.returncode == 0, f"phase q exited {proc.returncode}")
+    launches = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
+    check(launches == (0, 0, 0), f"phase q launched decomposition kernels: {launches}")
+
+
+def rounded(sizes) -> int:
+    """What the caching allocator hands out for tensors of these sizes
+    under expandable segments: each rounded up to ALLOC_ROUND bytes."""
+    return sum(-(-n // ALLOC_ROUND) * ALLOC_ROUND for n in sizes if n)
+
+
+def dry_traced(fn, args) -> dict:
+    """`trace_cell` of a cell, checked to allocate nothing on the card."""
+    from repro_torch.launch import dryrun
+
+    before = torch.cuda.memory_allocated()
+    traced = dryrun.trace_cell(fn, args)
+    check(torch.cuda.memory_allocated() == before, "the dry run allocated device memory")
+    check(set(traced["device_bytes"]) <= {"meta", "cpu"}, f"the dry run's storages {traced['device_bytes']}")
+    return traced
+
+
+def card_peak(step) -> int:
+    """max_memory_allocated() over one `step()` on the card, everything it
+    needs already there."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = step()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated()
+
+
+def dry_train_cell(bars: dict, failures: list) -> dict:
+    """Phase o's cell: launch.train's step (TRAIN_MAIN_ARGS) on a one-rank
+    fake mesh, against phase p's mesh peak and the state on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    args = launch_train.parse_args(TRAIN_MAIN_ARGS)
+    shape = ShapeConfig("train", args.seq, args.batch, "train")
+    with dryrun.fake_process_group(1):
+        cfg, plan, opt, step, _ = launch_train.build(args, make_host_mesh(1, 1, device_type="cuda"))
+        state = dryrun.abstract_train_state(cfg, opt, plan)
+        traced = dry_traced(step, (state, dryrun.abstract_batch(cfg, shape, plan)))
+        del state
+    del step, plan
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    state = init_train_state(cfg, opt, generator=torch.Generator("cuda").manual_seed(TRAIN_SEED), device="cuda")
+    batch = {k: torch.zeros((args.batch, args.seq), dtype=torch.int32, device="cuda") for k in ("tokens", "labels")}
+    state_bytes = torch.cuda.memory_allocated() - before
+    del state, batch
+    mem = traced["memory"]
+    want = rounded(traced["argument_storages"])
+    if state_bytes != want:
+        failures.append(f"phase o's cell: the state and batch took {state_bytes} B on the card, the dry run's "
+                        f"{len(traced['argument_storages'])} arguments {mem['argument_bytes']} B, rounded {want}")
+    p_peak = bars["phase_p_peak_device_bytes"]
+    gap = None if p_peak is None else mem["peak_bytes"] / p_peak - 1
+    if gap is None or abs(gap) > TOL_DRY_TRAIN:
+        failures.append(f"phase o's cell: dry-run peak {mem['peak_bytes']} B against phase p's {p_peak} B")
+    o_peak = bars["phase_o_peak_device_bytes"]
+    return {"args": TRAIN_MAIN_ARGS, "mesh": [1, 1], "memory": mem, "trace_s": traced["trace_s"],
+            "collectives": traced["collectives"], "flops": traced["cost"]["flops"],
+            "arguments": len(traced["argument_storages"]), "argument_bytes_rounded": want,
+            "card_state_and_batch_bytes": state_bytes, "phase_p_peak_device_bytes": p_peak, "gap_to_phase_p": gap,
+            "phase_o_peak_device_bytes": o_peak,
+            "gap_to_phase_o": None if o_peak is None else mem["peak_bytes"] / o_peak - 1, "tol": TOL_DRY_TRAIN}
+
+
+def dry_serve_cells(failures: list) -> dict:
+    """Phase n's serving shape in bfloat16: the prefill and decode cells
+    dry-run on a one-rank fake mesh, and each step once on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cache_len = SERVE_PROMPT + SERVE_NEW
+    shapes = {"prefill": ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill"),
+              "decode": ShapeConfig("decode", cache_len, SERVE_BATCH, "decode")}
+    traced = {}
+    with dryrun.fake_process_group(1):
+        mesh = make_host_mesh(1, 1, device_type="cuda")
+        for kind, shape in shapes.items():
+            fn, args, info = dryrun.build_cell(SERVE_ARCH, shape, mesh, cache_len=cache_len)
+            traced[kind] = dry_traced(fn, args)
+            del fn, args
+    cfg = info["cfg"]  # bfloat16 parameters
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(SERVE_SEED)
+    params = lm.init_params(cfg, generator=gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (SERVE_BATCH, SERVE_PROMPT), generator=gen, device="cuda", dtype=torch.int32)
+    prefill = make_prefill_step(cfg, cache_len=cache_len)
+    card = {"prefill": card_peak(lambda: prefill(params, {"tokens": tokens}))}
+    caches = lm.init_caches(cfg, SERVE_BATCH, cache_len, device="cuda")
+    new = tokens[:, -1:].contiguous()
+    pos = torch.full((SERVE_BATCH,), SERVE_PROMPT, dtype=torch.int64, device="cuda")
+    decode = make_decode_step(cfg)
+    card["decode"] = card_peak(lambda: decode(params, new, pos, caches, {}))
+    del params, caches, tokens, new, pos
+    torch.cuda.empty_cache()
+    out = {}
+    for kind, t in traced.items():
+        gap = t["memory"]["peak_bytes"] / card[kind] - 1
+        if abs(gap) > TOL_DRY_SERVE:
+            failures.append(f"{kind}: dry-run peak {t['memory']['peak_bytes']} B against {card[kind]} B on the card")
+        out[kind] = {"memory": t["memory"], "trace_s": t["trace_s"], "card_peak_device_bytes": card[kind],
+                     "gap": gap, "collectives": t["collectives"], "flops": t["cost"]["flops"]}
+    return {"arch": SERVE_ARCH, "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "cache_len": cache_len,
+            "param_dtype": cfg.param_dtype, "tol": TOL_DRY_SERVE, **out}
+
+
+def dry_cli_cells(failures: list) -> list:
+    """DRY_CELLS through the dry run's command line, as a user runs it."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, shape in DRY_CELLS:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                                   "--out", tmp], capture_output=True, text=True, timeout=DRY_CELL_TIMEOUT_S,
+                                  env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            wall_s = time.perf_counter() - t0
+            lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("[dryrun]")]
+            path = Path(tmp) / f"{arch}__{shape}__single.json"
+            rec = json.loads(path.read_text()) if path.is_file() else {}
+            if proc.returncode != 0 or not rec.get("ok"):
+                failures.append(f"dryrun {arch} {shape}: exit {proc.returncode}, {lines or proc.stderr[-400:]}")
+            mem = rec.get("memory", {})
+            out.append({"arch": arch, "shape": shape, "exit": proc.returncode, "line": lines, "wall_s": wall_s,
+                        "ok": rec.get("ok"), "trace_s": rec.get("trace_s"),
+                        "mesh_device_type": rec.get("mesh_device_type"),
+                        "peak_bytes_per_device": mem.get("peak_bytes"), "argument_bytes": mem.get("argument_bytes"),
+                        "card_total_memory": total,
+                        "collectives": {k: v["count"] for k, v in rec.get("collectives", {}).items()}})
+    return out
+
+
+def dryrun_child(bars: dict) -> int:
+    """Phase q's body, in its own process: prints the phase's line, exits
+    non-zero on a failed check."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_t0 = time.perf_counter()
+    failures: list = []
+    parts_s = {}
+    t0 = time.perf_counter()
+    train = dry_train_cell(bars, failures)
+    parts_s["train_cell"] = time.perf_counter() - t0
+    serve_cells = dry_serve_cells(failures)
+    parts_s["serve_cells"] = time.perf_counter() - t0 - parts_s["train_cell"]
+    cli = dry_cli_cells(failures)
+    parts_s["production_cells"] = time.perf_counter() - t0 - parts_s["train_cell"] - parts_s["serve_cells"]
+    if dist.is_initialized():
+        failures.append("the dry run left a process group running")
+    launches = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
+    if launches != (0, 0, 0):
+        failures.append(f"the dry run launched decomposition kernels: {launches}")
+    emit({"phase": "q", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0, "parts_s": parts_s,
+          "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"), "train_cell": train, "serve_cells": serve_cells,
+          "production_cells": cli, "decomposition_kernel_launches": list(launches), "failures": failures})
+    return 1 if failures else 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-phase"]:
+        sys.exit(dryrun_child(json.loads(sys.argv[2])))
     sys.exit(main())

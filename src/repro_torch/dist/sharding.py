@@ -382,14 +382,24 @@ class NamedSharding:
 def place(t: torch.Tensor, spec: P | None, plan: ShardingPlan) -> torch.Tensor:
     """A full tensor that every rank holds alike (drawn from one seed, read
     from one batch) as a DTensor with `spec`'s placements, divisibility-
-    filtered: each rank keeps its own slice, nothing is communicated.  The
-    identity off a mesh."""
+    filtered: each rank keeps its own slice, nothing is communicated (a
+    `meta` tensor: a new `meta` shard of the slice's shape).  The identity
+    off a mesh."""
     if plan.mesh is None:
         return t
-    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
     spec = valid_spec(tuple(t.shape), spec, plan.mesh)
-    return distribute_tensor(t, plan.mesh, placements(spec, plan.mesh), src_data_rank=None)
+    pl = placements(spec, plan.mesh)
+    if t.device.type != "meta" or is_dtensor(t):
+        return distribute_tensor(t, plan.mesh, pl, src_data_rank=None)
+    # shapes only (the dry run): a new meta shard of the even split's shape
+    local = list(t.shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            local[p.dim] //= plan.mesh.size(i)
+    return DTensor.from_local(torch.empty(local, dtype=t.dtype, device="meta"), plan.mesh, pl, run_check=False,
+                              shape=t.shape, stride=t.stride())
 
 
 def place_batch(batch: dict, plan: ShardingPlan) -> dict:

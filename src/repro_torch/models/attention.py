@@ -29,7 +29,7 @@ import torch
 from ..dist.sharding import NOPLAN, P, ShardingPlan, is_dtensor, local_call, local_offset, replicated, valid_spec
 from .layers import Params, apply_rope, dense_init, rmsnorm, rope_angles
 
-__all__ = ["NEG_INF", "attn_init", "split_heads", "qkv_project", "causal_attention", "full_attention",
+__all__ = ["NEG_INF", "attn_init", "split_heads", "merge_heads", "qkv_project", "causal_attention", "full_attention",
            "decode_attention", "self_attention_train", "self_attention_prefill",
            "self_attention_decode", "xattn_init", "cross_attention"]
 
@@ -53,18 +53,50 @@ def attn_init(d: int, n_heads: int, n_kv: int, hd: int, *, generator: torch.Gene
     return Params(**leaves)
 
 
+def _whole_heads(t: torch.Tensor, n: int) -> torch.Tensor:
+    """A DTensor whose last dim (n heads, flattened) is sharded over an axis
+    that does not divide n, gathered over that axis (a shard boundary would
+    fall inside a head); anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, last = t.device_mesh, t.dim() - 1
+    split = [isinstance(p, Shard) and p.dim == last for p in t.placements]
+    if any(s and n % mesh.size(i) for i, s in enumerate(split)):
+        t = t.redistribute(mesh, [Replicate() if s else p for s, p in zip(split, t.placements)])
+    return t
+
+
 def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     """(B, S, n * hd) -> (B, S, n, hd).  On a mesh, a feature dim sharded
-    over an axis that does not divide n is gathered first (explicit: a
-    shard boundary would fall inside a head)."""
-    if is_dtensor(t):
-        from torch.distributed.tensor import Replicate, Shard
-
-        mesh, last = t.device_mesh, t.dim() - 1
-        split = [isinstance(p, Shard) and p.dim == last for p in t.placements]
-        if any(s and n % mesh.size(i) for i, s in enumerate(split)):
-            t = t.redistribute(mesh, [Replicate() if s else p for s, p in zip(split, t.placements)])
+    over an axis that does not divide n is gathered first (explicit)."""
+    t = _whole_heads(t, n)
     return t.reshape(*t.shape[:-1], n, hd)
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity, whose gradient is brought to whole heads
+    (`_whole_heads`) before it flows back into the heads' unflatten."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        ctx.n = n
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.n), None
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, n, hd) -> (B, S, n * hd).  On a mesh, the gradient coming
+    back (a row-parallel projection's input gradient is sharded on this
+    feature dim) is gathered where the axis does not divide n (phi4-mini's
+    24 and whisper's 20 heads on a 16-way model axis)."""
+    *lead, n, hd = t.shape
+    flat = t.reshape(*lead, n * hd)
+    return _WholeHeadsGrad.apply(flat, n) if is_dtensor(flat) and flat.requires_grad else flat
 
 
 def qkv_project(p: Params, x: torch.Tensor, n_heads: int, n_kv: int, hd: int, *,
@@ -208,25 +240,25 @@ def self_attention_train(p: Params, x: torch.Tensor, cfg, positions: torch.Tenso
                          chunk: int = 2048, causal: bool = True, plan: ShardingPlan = NOPLAN) -> torch.Tensor:
     """Full-sequence self-attention (the whisper encoder runs it with
     causal=False)."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = qkv_project(p, x, H, KVH, hd, eps=cfg.norm_eps)
     if positions is None:
         positions = _positions(S, x)
     q, k = _rope_qk(q, k, positions, cfg)
     out = causal_attention(q, k, v, chunk=chunk, plan=plan) if causal else full_attention(q, k, v, plan=plan)
-    return out.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
+    return merge_heads(out) @ p["wo"].to(x.dtype)
 
 
 def self_attention_prefill(p: Params, x: torch.Tensor, cfg, *, chunk: int = 2048,
                            plan: ShardingPlan = NOPLAN) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Prefill: causal attention + return the (rope'd) KV for the cache."""
-    B, S, _ = x.shape
+    S = x.shape[1]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = qkv_project(p, x, H, KVH, hd, eps=cfg.norm_eps)
     q, k = _rope_qk(q, k, _positions(S, x), cfg)
     out = causal_attention(q, k, v, chunk=chunk, plan=plan)
-    y = out.reshape(B, S, H * hd) @ p["wo"].to(x.dtype)
+    y = merge_heads(out) @ p["wo"].to(x.dtype)
     return y, {"k": k, "v": v}
 
 
@@ -263,14 +295,13 @@ def self_attention_decode(p: Params, x: torch.Tensor, cache: dict[str, torch.Ten
     reference blends a one-hot over the whole cache; for a finite cache
     both give the same values, and this one touches B rows in place of the
     cache.  Every pos must be below the cache length."""
-    B = x.shape[0]
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q, k, v = qkv_project(p, x, H, KVH, hd, eps=cfg.norm_eps)
     q, k = _rope_qk(q, k, pos[:, None], cfg)  # cos/sin (B, 1, hd/2)
     _write_kv(cache["k"], k, pos)
     _write_kv(cache["v"], v, pos)
     out = decode_attention(q, cache["k"], cache["v"], pos, plan=plan)
-    y = out.reshape(B, 1, H * hd) @ p["wo"].to(x.dtype)
+    y = merge_heads(out) @ p["wo"].to(x.dtype)
     return y, {"k": cache["k"], "v": cache["v"]}
 
 
@@ -290,7 +321,6 @@ def cross_attention(p: Params, x: torch.Tensor, kv_src: torch.Tensor | None, cfg
     """Non-causal attention of x (B, Sq, D) into a memory stream kv_src
     (B, Skv, D).  Pass `cached_kv` during decode to skip reprojecting the
     (static) memory."""
-    B, Sq, _ = x.shape
     H, KVH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = split_heads(x @ p["wq"].to(x.dtype), H, hd)
     if cached_kv is None:
@@ -300,4 +330,4 @@ def cross_attention(p: Params, x: torch.Tensor, kv_src: torch.Tensor | None, cfg
         v = split_heads(kv_src @ p["wv"].to(x.dtype), KVH, hd)
         cached_kv = {"k": k, "v": v}
     out = full_attention(q, cached_kv["k"], cached_kv["v"], plan=plan)
-    return out.reshape(B, Sq, H * hd) @ p["wo"].to(x.dtype), cached_kv
+    return merge_heads(out) @ p["wo"].to(x.dtype), cached_kv

@@ -33,7 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import NOPLAN, P, ShardingPlan, local_call, shard, valid_spec
+from ..dist.sharding import NOPLAN, P, ShardingPlan, is_dtensor, local_call, shard, valid_spec
 from .layers import GLU_ACTS, Params, dense_init, gelu, is_glu
 
 __all__ = ["moe_init", "router_topk", "capacity", "moe_apply", "dispatch_remap", "combine_remap",
@@ -188,6 +188,12 @@ def experts_ffn(p: Params, buffers: torch.Tensor, act: str) -> torch.Tensor:
         h = g * u
     else:
         h = gelu(torch.einsum("...ecd,edf->...ecf", buffers, p["wu"].to(dt)))
+    if is_dtensor(h):
+        # On a mesh the hidden keeps the expert-major layout of the products
+        # above, and the einsum below would view a local shard whose strides
+        # cannot take it (grok-1 and jamba decode on the 16 x 16 mesh): laid
+        # out afresh, the same numbers.
+        h = h.contiguous()
     return torch.einsum("...ecf,efd->...ecd", h, p["wd"].to(dt))
 
 

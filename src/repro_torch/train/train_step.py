@@ -45,7 +45,8 @@ import torch
 
 from ..device import resolve_device
 from ..dist.compression import compress_decompress, init_error_feedback
-from ..dist.sharding import NOPLAN, ShardingPlan, full, param_pspecs, place_batch, placements, valid_spec
+from ..dist.sharding import NOPLAN, ShardingPlan, full, is_dtensor, param_pspecs, place_batch, placements, \
+    valid_spec
 from ..models import transformer as T
 from ..models.layers import Params, dtype_of, tree_of
 from .optimizer import AdamWConfig, adamw_init, adamw_update
@@ -123,6 +124,26 @@ def _on(batch: dict, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def _microbatch(v: torch.Tensor, n: int, i: int) -> torch.Tensor:
+    """Microbatch i of n of a batch tensor: rows [i B/n, (i+1) B/n) of a
+    whole one.  Of a DTensor (a batch placed over the data axes, as the dry
+    run passes it) rows [i b/n, (i+1) b/n) of each rank's shard of b rows,
+    so the split communicates nothing: the same rows as a whole batch's
+    microbatches where no rank splits the batch dim, else grouped per
+    shard."""
+    if not is_dtensor(v):
+        return v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+    from torch.distributed.tensor import DTensor
+
+    loc = v.to_local()
+    if loc.shape[0] % n:
+        raise ValueError(f"a batch shard of {loc.shape[0]} rows is not divisible by num_microbatches {n}")
+    part = loc.reshape((n, loc.shape[0] // n) + loc.shape[1:])[i]
+    shape = (v.shape[0] // n,) + tuple(v.shape[1:])
+    return DTensor.from_local(part, v.device_mesh, v.placements, run_check=False, shape=torch.Size(shape),
+                              stride=part.stride())
+
+
 def param_shardings_of(params, plan: ShardingPlan) -> dict | None:
     """{the port's parameter name: its DTensor placements} (`param_pspecs`,
     divisibility-filtered), or None off a mesh."""
@@ -174,9 +195,11 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, plan: ShardingPlan = NOPLAN, *, n
     """Build ``train_step(state, batch) -> (state, metrics)``.  The batch
     (numpy arrays or tensors, leading dimension B divisible by
     num_microbatches) is moved to the parameters' device (on a mesh: each
-    microbatch placed over the data axes); the state is updated in place
-    and returned.  Metrics: loss, ce, tokens, load_balance, router_z,
-    grad_norm, lr (0-dim tensors, whole on every rank)."""
+    microbatch placed over the data axes; a batch of DTensors already
+    placed there is split on each rank's shard, `_microbatch`); the state
+    is updated in place and returned.  Metrics: loss, ce, tokens,
+    load_balance, router_z, grad_norm, lr (0-dim tensors, whole on every
+    rank)."""
     n = num_microbatches
     if accum_dtype is None:
         accum_dtype = "bfloat16" if getattr(cfg, "fsdp", False) else "float32"
@@ -201,7 +224,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, plan: ShardingPlan = NOPLAN, *, n
                 raise ValueError(f"batch {B} is not divisible by num_microbatches {n}")
             grads, loss = None, torch.zeros((), dtype=torch.float32, device=params["embed"].device)
             for i in range(n):
-                mb = place_batch({k: v.reshape((n, B // n) + v.shape[1:])[i] for k, v in batch.items()}, plan)
+                mb = place_batch({k: _microbatch(v, n, i) for k, v in batch.items()}, plan)
                 mb_loss, metrics, g = value_and_grad(cfg, leaves, mb, attn_chunk=attn_chunk, plan=plan)
                 g = constrain_like_params(g, shardings)
                 loss = loss + full(mb_loss)

@@ -57,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.obs.calibrate, repro_torch.resilience, repro_torch.testing.faults, "
             "repro_torch.train.checkpoint, repro_torch.launch.serve, repro_torch.serve.engine, "
             "repro_torch.configs, repro_torch.data.pipeline, repro_torch.dist.compression, "
-            "repro_torch.train.optimizer, repro_torch.train.train_step, repro_torch.launch.train; "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, repro_torch.launch.train, "
+            "repro_torch.launch.dryrun; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

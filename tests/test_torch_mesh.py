@@ -86,6 +86,7 @@ LAUNCH = ["--arch", "qwen3-0.6b", "--reduced", "--device", "cpu", "--batch", "8"
 TOL_LAUNCH = 1e-6  # relative: the same state, summed on other meshes (measured 2.6e-7)
 REF_THREADS, RANKS_TIMEOUT_S = 2, 600
 SAVED = "qwen3_fsdp_mb2"  # the train case whose final state the ranks also save
+COUNTED = "qwen3_fsdp_mb2"  # ... and whose first step's collectives they count, for the dry run's
 # overrides under which the reference's init_train_state draws the same state
 SAME_INIT = ("fsdp",)
 TOL_EMBED = 1e-6  # absolute: the gathers are exact, the gradient sums the same terms
@@ -136,6 +137,8 @@ def jobs(tmp, inits: dict):
                 "init": init, "batches": bs, "chunk": CHUNK, "step_kw": kw}
         if name == SAVED:
             case["save_dir"] = str(tmp / "saved")
+        if name == COUNTED:
+            case["count_collectives"] = True
         ref[name] = ("train", rcfg, cfg, state, init, bs, kw)
         yield case, ref[name]
     for name, mesh, of in SERVE:
@@ -301,3 +304,36 @@ def test_launcher_elastic_restore_continues(runs):
     assert restored["restore_max_gap"] == 0.0 and restored["restored_leaves"] > 0
     assert restored["misplaced_restore"] == []
     np.testing.assert_allclose(restored["losses"], whole["losses"][2:], rtol=TOL_LAUNCH)
+
+
+def test_dry_run_counts_the_ranks_collectives(runs):
+    """The dry run of the 2 x 2 qwen3 fsdp case's step (meta DTensors on a
+    fake 2 x 2 group in this process, `launch.dryrun.trace_cell`) issues
+    the collectives the gloo ranks' first step issued, kind for kind.  On a
+    "cpu" mesh, as gloo's; on a "cuda" one DTensor sends an all-to-all
+    where gloo, which has none, gathers and chunks."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.dist.sharding import make_plan
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import make_train_step
+
+    got, _, _ = runs
+    ranks: dict = {}
+    for op, n in got[COUNTED]["collectives"].items():
+        ranks[D.collective_kind(op)] = ranks.get(D.collective_kind(op), 0) + n
+    assert ranks and None not in ranks
+    name, mesh_shape, arch, over, kw, rows = next(t for t in TRAIN if t[0] == COUNTED)
+    cfg, opt = port_cfg(arch, over), AdamWConfig(**OPT)
+    counts = {}
+    with D.fake_process_group(WORLD):
+        for device_type in ("cpu", "cuda"):
+            plan = make_plan(make_host_mesh(*mesh_shape, device_type=device_type), cfg)
+            args = (D.abstract_train_state(cfg, opt, plan), D.abstract_batch(cfg, ShapeConfig("t", S, rows, "train"), plan))
+            step = make_train_step(cfg, opt, plan, attn_chunk=CHUNK, **kw)
+            counts[device_type] = {k: c["count"] for k, c in D.trace_cell(step, args)["collectives"].items()}
+    assert counts["cpu"] == ranks
+    renamed = dict(counts["cuda"])
+    renamed["all-gather"] = renamed.get("all-gather", 0) + renamed.pop("all-to-all", 0)
+    assert renamed == ranks

@@ -51,6 +51,23 @@ TOL_LOSS_BF16, TOL_GNORM_BF16, TOL_PARAM_BF16, TOL_EMBED_BF16 = 3e-4, 1e-2, 3e-2
 PARAM_TOL_BF16_ACCUM = {"blocks.0.mlp.wd": 6e-4, "embed": 3e-4, "blocks.0.attn.wq": 3e-4, "blocks.0.mlp.wu": 1.5e-4}
 
 
+# The dry run's optimizer for fsdp archs (launch/dryrun.py `build_cell`, the
+# reference's dryrun.py:166-170): a factored second moment and bfloat16
+# moments.  Measured on the CPU: steps within 1.8e-7, parameters 1.66e-4
+# (embed; its rare rows' near-zero gradients, as PARAM_TOL's embeddings),
+# 4.5e-5 (blocks.0.attn.wo), the others 4.4e-5 or less.
+PARAM_TOL_FACTORED_BF16 = {"embed": 5e-4}
+
+
+def test_factored_v_bfloat16_state_matches_reference():
+    """fsdp on, factored_v and state_dtype "bfloat16" in both packages."""
+    opt = dict(factored_v=True, state_dtype="bfloat16")
+    run = reference_run("qwen3-0.6b", grads=False, overrides={"fsdp": True}, opt=opt)
+    steps, final = port_steps(run)
+    check_steps(run, steps)
+    check_params(run, final, named={(run.arch, k): v for k, v in PARAM_TOL_FACTORED_BF16.items()})
+
+
 def test_microbatches_2_bfloat16_accumulation_matches_reference():
     """fsdp on, accum_dtype not given: both packages accumulate the two
     microbatches' gradients in bfloat16 (ref train_step.py:86-87)."""

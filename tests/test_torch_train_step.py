@@ -123,6 +123,7 @@ class Run:
     # gap over the noise seeds, from the unperturbed run, of {"grads": by
     # leaf, "steps": per step by metric, "params": by leaf after the steps}.
     spread: dict | None = None
+    opt: dict = dataclasses.field(default_factory=lambda: dict(OPT))  # AdamWConfig's fields in both packages
 
 
 def rounded_once(tree, seed: int):
@@ -140,19 +141,21 @@ def rounded_once(tree, seed: int):
 
 
 def reference_run(arch: str, *, compute_dtype: str | None = None, grads: bool = True, noise_seeds: tuple = (),
-                  overrides: dict | None = None, **step_kw) -> Run:
+                  overrides: dict | None = None, opt: dict | None = None, **step_kw) -> Run:
     """The reference's gradients on the first batch and its 4 jitted steps;
     with `noise_seeds`, again from the initial parameters moved by one
     rounding (`rounded_once`) for each seed, through the same compiled
     functions, into `Run.spread`.  `overrides`: fields of the reduced
-    config set in both packages."""
+    config set in both packages; `opt`: AdamWConfig fields beside OPT's,
+    in both."""
     rcfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
     if compute_dtype:
         rcfg = dataclasses.replace(rcfg, compute_dtype=compute_dtype)
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     if overrides:
         rcfg, cfg = dataclasses.replace(rcfg, **overrides), dataclasses.replace(cfg, **overrides)
-    opt = RefAdamW(**OPT)
+    opt_kw = dict(OPT, **(opt or {}))
+    opt = RefAdamW(**opt_kw)
     state = ref_init(jax.random.PRNGKey(0), rcfg, opt, compress_grads=step_kw.get("compress_grads", False))
     init = jax.tree.map(np.asarray, state)
     bs = batches(cfg)
@@ -169,7 +172,7 @@ def reference_run(arch: str, *, compute_dtype: str | None = None, grads: bool = 
     final = {"params": flat(state.params), "m": flat(state.opt["m"])}
     if "ef" in state.opt:
         final["ef"] = flat(state.opt["ef"])
-    run = Run(arch, cfg, init, bs, loss, metrics, g, steps, final)
+    run = Run(arch, cfg, init, bs, loss, metrics, g, steps, final, opt=opt_kw)
     if noise_seeds:
         run.spread = {"grads": {}, "steps": [{k: 0.0 for k in STEP_METRICS} for _ in bs], "params": {}}
         for seed in noise_seeds:
@@ -196,7 +199,7 @@ def port_steps(run: Run, **step_kw) -> tuple[list, dict]:
     """The port's 4 steps from the reference's initial state: per-step
     metrics and the final state in the reference's layout (flat)."""
     state = train_state_from_numpy(run.init, run.cfg, "cpu")
-    step = make_train_step(run.cfg, AdamWConfig(**OPT), attn_chunk=CHUNK, **step_kw)
+    step = make_train_step(run.cfg, AdamWConfig(**run.opt), attn_chunk=CHUNK, **step_kw)
     steps = []
     for b in run.batches:
         state, m = step(state, b)

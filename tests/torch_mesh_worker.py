@@ -14,7 +14,8 @@ case on it and, on rank 0, pickles {case name: result} to
     step, the final state in the reference's layout, and every parameter,
     gradient (as AdamW receives it) and moment whose placements differ
     from its spec's; with "save_dir", `save_train_state` of the final
-    state there with its gathers counted;
+    state there with its gathers counted; with "count_collectives", the
+    collectives of the first step (`CommDebugMode`);
   * "serve": `generate` on the mesh from the reference's parameters, and
     the placements of the caches its prefill made;
   * "embed": the sharded embedding on a table at a given spec, forward and
@@ -89,10 +90,13 @@ def train(case: dict, mesh) -> dict:
     opt = AdamWConfig(**case["opt"])
     state = distribute_train_state(train_state_from_numpy(case["init"], cfg, "cpu"), cfg, plan, opt)
     step = TS.make_train_step(cfg, opt, plan, attn_chunk=case["chunk"], **case.get("step_kw", {}))
-    steps, grads = [], {}
+    steps, grads, collectives = [], {}, None
     with _optimizer_input(grads):
-        for b in case["batches"]:
-            state, m = step(state, b)
+        for i, b in enumerate(case["batches"]):
+            with _comm_counts(case.get("count_collectives") and i == 0) as counted:
+                state, m = step(state, b)
+            if counted is not None:
+                collectives = counted
             steps.append({k: float(m[k]) for k in ("loss", "ce", "grad_norm", "lr")})
     specs = train_state_pspecs(state, cfg, plan, opt)
     leaf_specs = reference_leaves(param_pspecs(state.params, plan), cfg.period)
@@ -101,10 +105,25 @@ def train(case: dict, mesh) -> dict:
                  + _misplaced(grads, leaf_specs, mesh, "grads"))
     n_checked = (len(list(state.params.parameters())) + sum(len(members(g)) for g in grads.values()))
     out = {"steps": steps, "final": train_state_to_numpy(state, cfg), "misplaced": misplaced,
-           "n_checked": n_checked}
+           "n_checked": n_checked, "collectives": collectives}
     if "save_dir" in case:
         out["save"] = _save_gathers(state, case["save_dir"])
     return out
+
+
+@contextlib.contextmanager
+def _comm_counts(on: bool):
+    """Where `on`: the collectives issued inside, {printed op: count}
+    (`CommDebugMode`), filled in on exit; else None."""
+    if not on:
+        yield None
+        return
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    counts: dict = {}
+    with CommDebugMode() as mode:
+        yield counts
+    counts.update({str(op): n for op, n in mode.get_comm_counts().items()})
 
 
 def _save_gathers(state, directory: str) -> dict:
