@@ -147,7 +147,10 @@ printing one JSON line:
               (finite, falling); phi3.5-moe (1 layer, both dispatch modes,
               the same drops), llama-3.2-vision (5), mamba2-370m and
               whisper-large-v3 (whole) at full width, 4 x 256 for 4 steps
-              at lr 1e-4 (finite);
+              at lr 1e-4 (finite); the same four at the same depth in
+              float32, one loss and its gradients on 1 x 64 tokens on the
+              card against the CPU from one state (the losses within 1e-5
+              relative, each leaf's gradient within its bound);
               why jamba and grok-1 are not trained on one card
   p  mesh     the LM stack on a `DeviceMesh` (no decomposition kernel; the
               counters stay 0): a one-rank NCCL process group begun in
@@ -180,6 +183,20 @@ printing one JSON line:
               left; `python -m repro_torch.launch.dryrun --arch qwen3-0.6b
               --shape decode_32k` as a subprocess (exit 0, its record ok,
               peak per device beside the card's memory)
+  r  entries  the port's entry points, each once through its main(argv)
+              on the card (exit code, seconds, kernel launches; every exit
+              code 0): scripts/torch_calibrate.py at --preset tiny --rank 8
+              --reps 2 into a temporary autotune cache, then --check-hit on
+              it (a hit and no miss); examples/quickstart_torch.py --fast
+              for CP, Tucker and TT with --devices 1 and --devices 2 (2
+              shards in turn on the card: the sharded fits within 1e-5 of
+              one device's), --fast --auto-tune cached twice (the second
+              evaluates no configuration) and traced;
+              scripts/torch_trace_report.py on that trace with --pms; the
+              examples train_lm_torch (20 steps), serve_batch_torch,
+              fault_tolerance_demo_torch (the injected failure at step 13,
+              the restore from step 8, exit 0) and moe_dispatch_demo_torch
+              (the two dispatch modes within 1e-5)
 
 then the `kernels` line, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.  Any failure exits non-zero before that line.
@@ -199,6 +216,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -521,6 +539,33 @@ TRAIN_MB_SEEDS, TRAIN_MB_SHARP = (0, 1, 2), 1e3
 TRAIN_FAMILIES = {"phi3.5-moe-42b-a6.6b": 1, "llama-3.2-vision-11b": 5, "mamba2-370m": None,
                   "whisper-large-v3": None}
 TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS, TRAIN_FAMILY_LR = 4, 256, 4, 1e-4
+# The families of TRAIN_FAMILIES at the same depth, in float32 (remat off,
+# for the CPU's time), held card against CPU: one loss and its gradients on
+# FAMILY_GRAD_BATCH x FAMILY_GRAD_SEQ tokens from one state drawn on the
+# card (its parameters copied to the CPU: a round trip through numpy,
+# convert.train_state_to_numpy and params_from_numpy, took 10.6 and 12.3 s
+# of the 56.7 s check for phi3.5-moe and llama in one run, past its 45 s
+# budget; measured on one H100); the losses within TOL_TRAIN_LOSS
+# relative, each leaf's gradient within TOL_FAMILY_GRAD of its largest
+# |gradient| on the CPU, or the bound FAMILY_GRAD_NAMED gives the (arch,
+# leaf kind: the name without its layer).
+# The bounds, each at 2.6 times or more its reading (measured on one H100,
+# "NVIDIA H100 80GB HBM3, 700.00 W"): every leaf kind of phi3.5-moe within
+# 2.80e-6 (attn.wv), llama-3.2-vision 4.84e-6 (norm2.scale), whisper (8
+# layers) 7.75e-6 (attn.wk); mamba2-370m's 48 layers of the SSD scan, whose
+# float32 sums and exponentials round in other orders on the two devices,
+# 2.29e-5 (mamba.conv_w), and its decay's leaves 5.14e-5 (mamba.A_log) and
+# 4.01e-5 (mamba.dt_bias); the losses within 8.6e-8.
+FAMILY_GRAD_BATCH, FAMILY_GRAD_SEQ = 1, 64
+TOL_FAMILY_GRAD = 2e-5
+FAMILY_GRAD_NAMED = {("mamba2-370m", kind): 7e-5 for kind in (
+    "embed", "norm1.scale", "mamba.in_proj", "mamba.conv_w", "mamba.conv_b", "mamba.D", "mamba.out_proj",
+    "mamba.out_norm.scale", "norm_f.scale")}
+FAMILY_GRAD_NAMED.update({("mamba2-370m", "mamba.A_log"): 2e-4, ("mamba2-370m", "mamba.dt_bias"): 1.5e-4})
+# whisper's encoder and decoder cut to 8 layers of 32 here: whole, its
+# 1,500-frame encoder took 33.9 s on the 8-thread CPU of an H100 machine
+# and the check 155 s.
+FAMILY_GRAD_LAYERS = {"whisper-large-v3": 8}
 # Not trained on one card: one period / layer (with the embeddings) at 14 B
 # a parameter (fsdp archs: float32 master, bfloat16 m, v, cast, gradient).
 TRAIN_NOT_ON_ONE_CARD = {"jamba-v0.1-52b": 8, "grok-1-314b": 1}
@@ -556,6 +601,20 @@ ALLOC_ROUND = 512
 DRY_CELLS = (("qwen3-0.6b", "decode_32k"),)
 DRY_CELL_TIMEOUT_S, DRY_PHASE_TIMEOUT_S = 120, 300
 DRY_ALLOC_CONF = "expandable_segments:True"
+# Phase r: the port's entry points, each once through its main(argv) on the
+# card, every exit code 0.  The calibration CLI into a temporary autotune
+# cache, then --check-hit on it (a hit, no miss: nothing calibrated again
+# by the resolve); quickstart --fast for each format with --devices 1 and 2
+# (the sharded fits within TOL_SHARD_FIT of one device's, every iteration);
+# quickstart --fast --auto-tune cached twice (the second run evaluates no
+# configuration, a cache hit per mode) and traced, and the trace report on
+# that trace with --pms; the four examples (train_lm_torch at
+# ENTRY_TRAIN_LM_STEPS steps; the MoE demo's dispatch modes within
+# TOL_MOE_MODES of each other).  Phase r's budget is 60 s.
+CALIBRATE_ARGS = ["--preset", "tiny", "--rank", "8", "--reps", "2"]
+TOL_SHARD_FIT = 1e-5
+ENTRY_TRAIN_LM_STEPS = 20
+TOL_MOE_MODES = 1e-5
 
 
 def emit(obj: dict) -> None:
@@ -883,6 +942,7 @@ def main() -> int:
     train_main_path = training_phase()
     mesh_peak = mesh_phase(serve_main_path, train_main_path)
     dryrun_phase(train_main_path["peak_device_bytes"], mesh_peak)
+    entry_points_phase()
 
     emit({"kernels": [mttkrp_entry, tucker, tt]})
     print(smi, flush=True)
@@ -2662,6 +2722,70 @@ def train_families() -> tuple[list, list, list]:
     return rows, skipped, failures
 
 
+def leaf_kind(name: str) -> str:
+    """A parameter leaf's name without its layer ("blocks.7.attn.wq" ->
+    "attn.wq")."""
+    parts = name.split(".")
+    return ".".join(parts[2:]) if parts[0] == "blocks" and parts[1].isdigit() else name
+
+
+def family_gradients() -> tuple[list, list]:
+    """The families' loss and gradients on the card against the CPU (see
+    FAMILY_GRAD_BATCH)."""
+    rows, failures = [], []
+    for arch, layers in TRAIN_FAMILIES.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        depth = FAMILY_GRAD_LAYERS.get(arch, layers)
+        if depth is not None:
+            cfg = dataclasses.replace(cfg, n_layers=depth, encoder_layers=min(depth, cfg.encoder_layers))
+        cfg = dataclasses.replace(cfg, compute_dtype="float32", remat=False)
+        # One state drawn on the card; its parameters alone are copied to
+        # the CPU (the gradients read nothing of the optimizer's).
+        drawn = init_train_state(cfg, AdamWConfig(factored_v=True), generator=torch.Generator("cuda").manual_seed(
+            TRAIN_SEED), device="cuda")
+        t1 = time.perf_counter()
+        host = lm.abstract_params(cfg).to_empty(device="cpu")
+        host.load_state_dict(drawn.params.state_dict())
+        params = {"cuda": drawn.params, "cpu": host}
+        del drawn, host
+        seconds = {"to_cpu": time.perf_counter() - t1}
+        batch = stub_memory(cfg, TokenPipeline(cfg.vocab, FAMILY_GRAD_SEQ, FAMILY_GRAD_BATCH, seed=TRAIN_SEED).batch(0),
+                            TRAIN_SEED, 0)
+        losses, grads = {}, {}
+        for dev in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss, _, g = train_step_mod.value_and_grad(cfg, train_step_mod.cast_leaves(params.pop(dev), cfg), b)
+            losses[dev], grads[dev] = float(loss), g
+            del b
+            seconds[dev] = time.perf_counter() - t1
+        gaps = {}
+        with torch.no_grad():
+            for name, want in grads["cpu"].items():
+                want = want.to("cuda")
+                gaps[name] = float((grads["cuda"][name] - want).abs().max() / want.abs().max().clamp_min(1e-30))
+                del want
+        del grads
+        torch.cuda.empty_cache()
+        loss_gap = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+        if loss_gap > TOL_TRAIN_LOSS:
+            failures.append(f"{arch} float32 card against CPU: losses {losses} gap {loss_gap}")
+        by_kind: dict[str, float] = {}
+        for name, gap in gaps.items():
+            by_kind[leaf_kind(name)] = max(by_kind.get(leaf_kind(name), 0.0), gap)
+        bound = {k: FAMILY_GRAD_NAMED.get((arch, k), TOL_FAMILY_GRAD) for k in by_kind}
+        over = {k: v for k, v in by_kind.items() if v > bound[k]}
+        if over:
+            failures.append(f"{arch} float32 card against CPU: gradients over their bounds {over}")
+        rows.append({"arch": arch, "n_layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+                     "batch": FAMILY_GRAD_BATCH, "seq": FAMILY_GRAD_SEQ, "losses": losses, "loss_rel_gap": loss_gap,
+                     "leaves": len(gaps), "max_grad_rel_gap_by_kind": by_kind,
+                     "median_grad_rel_gap": statistics.median(gaps.values()), "s": time.perf_counter() - t0,
+                     "s_by_device": seconds})
+    return rows, failures
+
+
 def training_phase() -> dict:
     """Phase o: the LM stack's training path on the card (no decomposition
     kernel on it: the counters stay 0).  Every number is emitted before any
@@ -2675,12 +2799,19 @@ def training_phase() -> dict:
     failures += f
     families, not_trained, f = train_families()
     failures += f
+    t0 = time.perf_counter()
+    family_grads, f = family_gradients()
+    failures += f
+    family_grads_s = time.perf_counter() - t0
     launches = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
     if launches != (0, 0, 0):
         failures.append(f"the training path launched decomposition kernels: {launches}")
     emit({"phase": "o", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0,
           "main_path": main_path, "card_vs_cpu": {**cpu, "tol_loss": TOL_TRAIN_LOSS, "tol_param": TOL_TRAIN_PARAM},
           "full_width_float32": self_checks, "families": families, "not_trained": not_trained,
+          "families_card_vs_cpu": {"rows": family_grads, "s": family_grads_s, "tol_loss": TOL_TRAIN_LOSS,
+                                   "tol_grad": TOL_FAMILY_GRAD,
+                                   "named": {f"{a} {k}": v for (a, k), v in FAMILY_GRAD_NAMED.items()}},
           "decomposition_kernel_launches": list(launches), "failures": failures})
     check(not failures, "; ".join(failures))
     return main_path
@@ -2880,6 +3011,96 @@ def _beside(serve_main_path: dict, train_main_path: dict) -> dict:
               "phase_n_decode_ms_per_step": serve_main_path["decode_ms_per_step"],
               "phase_n_decode_device_ms": serve_main_path["profile"]["decode_step"]["device_ms"],
               "phase_n_peak_device_bytes": serve_main_path["peak_device_bytes"]}
+
+
+def load_entry(rel: str):
+    """A script or example of the checkout as a module, for its main()."""
+    import importlib.util
+
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location("_entry_" + path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def entry_points_phase() -> None:
+    """Phase r: every entry point of the port once on the card (see
+    CALIBRATE_ARGS).  Each run's exit code, seconds and kernel launches
+    are emitted before any failed check raises."""
+    phase_t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    reset_launches()
+    runs, failures = [], []
+
+    def run(rel: str, argv: list, out: dict | None = None) -> dict:
+        before = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
+        t0 = time.perf_counter()
+        mod = load_entry(rel)
+        rc = mod.main(argv) if out is None else mod.main(argv, out)
+        torch.cuda.synchronize()
+        after = (mttkrp_blocked.launches, ttmc_blocked.launches, ttcore_blocked.launches)
+        row = {"entry": rel, "argv": argv, "exit": rc, "s": time.perf_counter() - t0,
+               "launches": {k: b - a for k, a, b in zip(("mttkrp", "ttmc", "ttcore"), before, after)}}
+        runs.append(row)
+        if rc != 0:
+            failures.append(f"{rel} {' '.join(argv)} exited {rc}")
+        return row
+
+    quick = "examples/quickstart_torch.py"
+    kernel_of = {"cp": "mttkrp", "tucker": "ttmc", "tt": "ttcore"}
+    checks: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "autotune")
+        run("scripts/torch_calibrate.py", CALIBRATE_ARGS + ["--cache-dir", cache])
+        hit: dict = {}
+        run("scripts/torch_calibrate.py", CALIBRATE_ARGS + ["--cache-dir", cache, "--check-hit"], hit)
+        checks["calibrate_check_hit"] = hit.get("check_hit")
+        if not hit.get("check_hit") or hit["check_hit"]["spec_misses"] or not hit["check_hit"]["spec_hits"]:
+            failures.append(f"torch_calibrate --check-hit: spec lookups {hit.get('check_hit')}")
+
+        sharded = {}
+        for algo in ("cp", "tucker", "tt"):
+            one, two = {}, {}
+            row1 = run(quick, ["--fast", "--algo", algo, "--devices", "1"], one)
+            run(quick, ["--fast", "--algo", algo, "--devices", "2"], two)
+            gap = max(abs(a - b) for a, b in zip(two["sharded_fit_history"], one["fit_history"]))
+            sharded[algo] = {"fits_devices_1": one["fit_history"], "sharded_fits_devices_2": two["sharded_fit_history"],
+                             "shards": two["shards"], "max_fit_gap": gap}
+            if not gap <= TOL_SHARD_FIT:
+                failures.append(f"quickstart --algo {algo} --devices 2: sharded fits {two['sharded_fit_history']} "
+                                f"against --devices 1's {one['fit_history']}")
+            if row1["launches"][kernel_of[algo]] == 0:
+                failures.append(f"quickstart --algo {algo} launched no {kernel_of[algo]} kernel: {row1['launches']}")
+        checks["sharded"] = sharded
+
+        trace = os.path.join(tmp, "quickstart.jsonl")
+        cached = [{}, {}]
+        with mock.patch.dict(os.environ, {"REPRO_TORCH_AUTOTUNE_DIR": cache}):
+            run(quick, ["--fast", "--auto-tune", "cached"], cached[0])
+            run(quick, ["--fast", "--auto-tune", "cached", "--trace", trace], cached[1])
+        checks["auto_tune_cached"] = [{k: c.get(k) for k in ("configs_evaluated", "autotune_cache_hits",
+                                                             "fit_history", "launches")} for c in cached]
+        if not (cached[0]["configs_evaluated"] > 0 and cached[1]["configs_evaluated"] == 0
+                and cached[1]["autotune_cache_hits"] > 0):
+            failures.append(f"quickstart --auto-tune cached twice: {checks['auto_tune_cached']}")
+        run("scripts/torch_trace_report.py", [trace, "--pms"])
+
+        run("examples/train_lm_torch.py", ["--steps", str(ENTRY_TRAIN_LM_STEPS), "--ckpt-dir",
+                                           os.path.join(tmp, "train_lm")])
+        run("examples/serve_batch_torch.py", [])
+        run("examples/fault_tolerance_demo_torch.py", [])
+        moe: dict = {}
+        run("examples/moe_dispatch_demo_torch.py", [], moe)
+        checks["moe_dispatch"] = moe
+        if not moe.get("max_abs_diff", math.inf) <= TOL_MOE_MODES:
+            failures.append(f"moe_dispatch_demo_torch: remap against onehot {moe.get('max_abs_diff')}")
+    torch.cuda.empty_cache()
+    emit({"phase": "r", "nvidia_smi": nvidia_smi(), "phase_s": time.perf_counter() - phase_t0, "runs": runs,
+          "checks": checks, "tol_shard_fit": TOL_SHARD_FIT, "tol_moe_modes": TOL_MOE_MODES,
+          "launches": {"mttkrp": mttkrp_blocked.launches, "ttmc": ttmc_blocked.launches,
+                       "ttcore": ttcore_blocked.launches}, "failures": failures})
+    check(not failures, "; ".join(failures))
 
 
 def dryrun_phase(phase_o_peak: int | None, phase_p_peak: int | None) -> None:

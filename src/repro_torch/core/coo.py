@@ -3,12 +3,14 @@
 Counterpart of `repro.core.coo`.  The container stays host-side numpy and
 the generators make the same numpy generator calls as the reference, so a
 seed gives the same tensor bit for bit.  `to_device` moves the stream to a
-torch device for the fit's inner product.
+torch device for the fit's inner product; `CooBatch` is the same stream on
+a device with its non-zeros padded to a multiple (`pad_nnz`).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 from typing import Sequence
 
 import numpy as np
@@ -16,10 +18,13 @@ import torch
 
 __all__ = [
     "SparseTensor",
+    "CooBatch",
+    "pad_nnz",
     "synthetic_tensor",
     "frostt_like",
     "norm_sq",
     "to_device",
+    "random_factors",
 ]
 
 
@@ -104,6 +109,41 @@ def to_device(st: SparseTensor, device: torch.device) -> tuple[torch.Tensor, tor
     )
 
 
+def pad_nnz(st: SparseTensor, multiple: int) -> SparseTensor:
+    """Pad the non-zero stream to a multiple of `multiple` with zero values
+    at coordinate 0, which add nothing to any product."""
+    nnz = st.nnz
+    padded = ((nnz + multiple - 1) // multiple) * multiple
+    if padded == nnz:
+        return st
+    pad = padded - nnz
+    idx = np.concatenate([st.indices, np.zeros((pad, st.nmodes), np.int32)], 0)
+    val = np.concatenate([st.values, np.zeros((pad,), np.float32)], 0)
+    return SparseTensor(idx, val, st.shape)
+
+
+@dataclasses.dataclass
+class CooBatch:
+    """A COO stream on a device, its non-zeros padded (`pad_nnz`) to a
+    fixed count.  Padding rows have value 0 and coordinates 0."""
+
+    indices: torch.Tensor  # (nnz_padded, nmodes) int32
+    values: torch.Tensor  # (nnz_padded,)
+    shape: tuple[int, ...]
+    nnz: int  # the true count (<= padded)
+
+    @property
+    def nmodes(self) -> int:
+        return len(self.shape)
+
+    @classmethod
+    def from_sparse(cls, st: SparseTensor, device: torch.device | str, pad_multiple: int = 1,
+                    dtype: torch.dtype = torch.float32) -> "CooBatch":
+        stp = pad_nnz(st, pad_multiple) if pad_multiple > 1 else st
+        idx, val = to_device(stp, torch.device(device))
+        return cls(indices=idx, values=val.to(dtype), shape=st.shape, nnz=st.nnz)
+
+
 def _zipf_coords(rng: np.random.Generator, n: int, size: int, alpha: float) -> np.ndarray:
     """Skewed coordinates (power-law mode degrees, as in real FROSTT
     tensors).  alpha=0 -> uniform.  Same generator calls as the reference."""
@@ -151,3 +191,11 @@ def frostt_like(name: str = "small", seed: int = 0) -> SparseTensor:
     """Synthetic stand-ins shaped like FROSTT-repository tensors."""
     shape, nnz, skew = FROSTT_PRESETS[name]
     return synthetic_tensor(shape, nnz, seed=seed, skew=skew)
+
+
+def random_factors(shape: Sequence[int], rank: int, *, generator: torch.Generator,
+                   device: torch.device | str, dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
+    """Random dense factor matrices, one (I_m, R) per mode, each entry
+    N(0, 1) / sqrt(R), drawn from `generator` (on `device`) in mode order."""
+    return [torch.randn((int(s), rank), generator=generator, device=device, dtype=dtype) / math.sqrt(rank)
+            for s in shape]

@@ -43,6 +43,7 @@ from .memctrl import CacheEngineConfig
 __all__ = [
     "BlockPlan",
     "PlanValidationError",
+    "default_in_tiles",
     "group_key",
     "plan_blocks",
     "plan_blocks_reference",
@@ -306,6 +307,12 @@ def group_key(tile_cols: list[torch.Tensor], tile_counts: list[int]) -> torch.Te
             raise ValueError(f"tile count {count} must be >= 1")
         key = key * int(count) + col.to(torch.int64)
     return key
+
+
+def default_in_tiles(n_in: int, tile_j: int, tile_k: int) -> tuple[int, ...]:
+    """The (tile_j, tile_k) pair expanded to n_in input tile sizes, by the
+    rule of `CacheEngineConfig.input_tiles` (what the PMS scores)."""
+    return CacheEngineConfig(tile_j=tile_j, tile_k=tile_k).input_tiles(n_in)
 
 
 @dataclasses.dataclass

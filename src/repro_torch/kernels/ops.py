@@ -44,6 +44,7 @@ from ..core.pms import resolve_spec as pms_resolve_spec
 from ..core.pms import search as pms_search
 from ..core.pms import search_sharded as pms_search_sharded
 from ..core.remap import BlockPlan, plan_blocks, plans_validated, validate_plan
+from .._lazy import lazy_attrs
 from ..device import resolve_device
 from ..dist.collective import Replicas, reduce_partials
 from ..dist.sharding import ShardingPlan, StreamPartition, partition_stream, shard_cut_points
@@ -53,7 +54,7 @@ from .mttkrp import mttkrp_blocked, pad_factor, rank_padded
 from .ref import ttcore_ref, ttmc_ref
 from .tt import tt_out_cols, tt_out_pair, ttcore_blocked
 from .ttm import kron_cols, ttmc_blocked
-from .workspace import PlannedWorkspace, ShardedWorkspace
+from .workspace import PlannedWorkspace, ShardedWorkspace, _padded_rows_from, planned_layout_bytes
 
 __all__ = [
     "PlannedMTTKRP",
@@ -72,9 +73,30 @@ __all__ = [
     "plan_cache_clear",
     "plan_cache_config",
     "plan_cache_stats",
+    "planned_layout_bytes",
+    "planned_padded_rows",
     "tt_auto",
     "tucker_auto",
+    "ShardedPlannedTucker",
+    "make_sharded_planned_tucker",
+    "ShardedPlannedTT",
+    "make_sharded_planned_tt",
 ]
+
+# The sharded Tucker and TT workspaces live beside their drivers
+# (tucker/hooi.py, tt/als.py), which import this module: resolved on first
+# use (PEP 562) so that neither import comes first.
+__getattr__ = lazy_attrs(__name__, {
+    "ShardedPlannedTucker": "..tucker.hooi", "make_sharded_planned_tucker": "..tucker.hooi",
+    "ShardedPlannedTT": "..tt.als", "make_sharded_planned_tt": "..tt.als"})
+
+
+def planned_padded_rows(ops: dict, nmodes: int) -> tuple[int, ...]:
+    """Device-resident row padding per mode for a per-mode plan family
+    (`PlannedMTTKRP` / `PlannedTTMC` / `PlannedTTCore` by mode): the most
+    any plan needs of that factor (its own plan's out_rows, and in_rows
+    wherever it is an input mode)."""
+    return _padded_rows_from({m: op.plan for m, op in ops.items()}, nmodes)
 
 
 @dataclasses.dataclass

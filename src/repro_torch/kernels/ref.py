@@ -33,7 +33,7 @@ from ..core.mttkrp import mttkrp_approach2
 from .tt import chain_left, chain_right
 from .ttm import kron_rows
 
-__all__ = ["mttkrp_ref", "mttkrp_ref_dense", "mttkrp_plan_ref", "ttmc_ref", "ttmc_plan_ref",
+__all__ = ["mttkrp_ref", "mttkrp_ref_dense", "mttkrp_plan_ref", "ttmc_ref", "ttmc_ref_dense", "ttmc_plan_ref",
            "ttcore_ref", "ttcore_ref_dense", "ttcore_plan_ref"]
 
 #: Non-zero-by-column elements per step of the raw-stream references.
@@ -116,6 +116,31 @@ def ttmc_ref(
                 contrib = kron_rows(contrib, f.index_select(0, idx[:, n]))
         out.index_add_(0, idx[:, mode], contrib)
     return out
+
+
+def ttmc_ref_dense(
+    indices: np.ndarray,
+    values: np.ndarray,
+    factors: Sequence[np.ndarray],
+    mode: int,
+    out_rows: int,
+) -> np.ndarray:
+    """Densify-and-einsum cross-check of the TTM chain for 3-5 modes
+    (repeated coordinates add up; float64 inside): every mode but `mode`
+    contracted with its factor, the rank axes flattened row-major.  numpy
+    in and out, float32 out."""
+    nmodes = len(factors)
+    if not 3 <= nmodes <= 5:
+        raise ValueError(f"the dense cross-check takes 3-5 modes, got {nmodes}")
+    shape = tuple(int(f.shape[0]) for f in factors)
+    dense = np.zeros(shape, np.float64)
+    np.add.at(dense, tuple(indices[:, m] for m in range(nmodes)), values.astype(np.float64))
+    ins = [n for n in range(nmodes) if n != mode]
+    letters, ranks = "abcde"[:nmodes], "vwxyz"
+    spec = (letters + "," + ",".join(letters[n] + ranks[k] for k, n in enumerate(ins))
+            + "->" + letters[mode] + ranks[:len(ins)])
+    out = np.einsum(spec, dense, *[factors[n].astype(np.float64) for n in ins])
+    return out.reshape(shape[mode], -1)[:out_rows].astype(np.float32)
 
 
 def ttmc_plan_ref(plan, factors_padded: Sequence[torch.Tensor], in_ranks: Sequence[int]) -> torch.Tensor:

@@ -1,15 +1,15 @@
 """Predicted-vs-achieved PMS accounting.
 
-Counterpart of `repro.obs.calibrate` (`accuracy_records` waits for the
-bench).  It joins the exact per-plan PMS predictions (`predict_from_plan` /
-`predict_ttmc` / `predict_tt`, from the workspace's built BlockPlans) with
-measured sweep times, given directly (`calibration_row`) or read from a
+Counterpart of `repro.obs.calibrate`.  It joins the exact per-plan PMS
+predictions (`predict_from_plan` / `predict_ttmc` / `predict_tt`, from the
+workspace's built BlockPlans) with measured sweep times, given directly (`calibration_row`) or read from a
 trace's `sweep` spans, which carry the prediction (`join_trace`):
 
     achieved_pct = 100 * t_predicted / t_measured
 
 100% means the sweep ran at the modelled roofline; far below means the
-model is optimistic for that (format, config, tensor).
+model is optimistic for that (format, config, tensor).  `accuracy_records`
+renders the rows as benchmark result records (`repro_torch.bench`).
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ __all__ = [
     "predicted_sweep_seconds",
     "CalibrationRow",
     "calibration_row",
+    "accuracy_records",
     "join_trace",
     "format_table",
 ]
@@ -69,6 +70,22 @@ def calibration_row(ws: Any, measured_s: float, *, format: str, preset: str,
     return CalibrationRow(format=format, preset=preset,
                           predicted_s=predicted_sweep_seconds(ws, spec),
                           measured_s=float(measured_s))
+
+
+def accuracy_records(rows: Sequence[CalibrationRow]) -> list[dict]:
+    """Calibration rows as benchmark result records (`pms_accuracy_<format>`:
+    predicted_s, measured_s, achieved_pct; schema `repro_torch.bench`)."""
+    from ..bench import result_record
+
+    out = []
+    for r in rows:
+        name = f"pms_accuracy_{r.format}"
+        out += [
+            result_record(name, r.preset, "predicted_s", r.predicted_s, "s"),
+            result_record(name, r.preset, "measured_s", r.measured_s, "s"),
+            result_record(name, r.preset, "achieved_pct", r.achieved_pct, "%"),
+        ]
+    return out
 
 
 def _steady_state_s(durs_us: Sequence[float]) -> float:

@@ -40,6 +40,10 @@ import torch
 from ..dist.sharding import P, full, is_dtensor
 from .stacks import Leaf, map_tree, members, rank
 
+#: A parameter tree: the reference's leaf names to a tensor or a per-layer
+#: stack (`train/stacks.py`).
+Params = dict
+
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "opt_pspecs", "lr_at", "global_norm"]
 
 #: The smallest tensor `update_slices` slices (the reference's 2^28).

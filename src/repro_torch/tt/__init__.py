@@ -1,7 +1,8 @@
 """Sparse tensor-train decomposition (TT-ALS) on the planned TT-core kernel,
 which runs on the same BlockPlan layout as MTTKRP and TTMc (see
-kernels/tt.py)."""
-from ..kernels.ops import PlannedTTCore, make_planned_ttcore
+kernels/tt.py); `tt_auto` is the one-shot dispatcher sharing the plan
+cache of kernels/ops.py."""
+from ..kernels.ops import PlannedTTCore, make_planned_ttcore, tt_auto
 from .als import (
     PlannedTT,
     TTState,
@@ -30,4 +31,5 @@ __all__ = [
     "tt_fit_value",
     "PlannedTTCore",
     "make_planned_ttcore",
+    "tt_auto",
 ]

@@ -1,6 +1,8 @@
 """Sparse Tucker decomposition (HOOI) on the planned TTM-chain kernel, which
-runs on the same BlockPlan layout as MTTKRP (see kernels/ttm.py)."""
-from ..kernels.ops import PlannedTTMC, make_planned_ttmc
+runs on the same BlockPlan layout as MTTKRP (see kernels/ttm.py);
+`tucker_auto` is the one-shot TTMc dispatcher sharing the plan cache of
+kernels/ops.py."""
+from ..kernels.ops import PlannedTTMC, make_planned_ttmc, tucker_auto
 from .hooi import (
     PlannedTucker,
     TuckerState,
@@ -19,4 +21,5 @@ __all__ = [
     "core_fit_value",
     "PlannedTTMC",
     "make_planned_ttmc",
+    "tucker_auto",
 ]

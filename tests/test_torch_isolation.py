@@ -1,5 +1,5 @@
 """The port stands alone: no JAX and nothing of the JAX package in
-`src/repro_torch/`, `chip_smoke.py` or the port's probe scripts; and its
+`src/repro_torch/`, `chip_smoke.py`, the port's scripts and examples; and its
 device contract — CUDA by default, an error (not a silent CPU run) when
 there is no GPU."""
 import ast
@@ -29,9 +29,8 @@ from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.train_step import init_train_state, make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"] + sorted(
-    (ROOT / "scripts").glob("torch_*_probe.py"))
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + sorted((ROOT / "scripts").glob("torch_*.py"))
 
 
 def imported_modules(path: Path) -> list[str]:
@@ -58,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.train.checkpoint, repro_torch.launch.serve, repro_torch.serve.engine, "
             "repro_torch.configs, repro_torch.data.pipeline, repro_torch.dist.compression, "
             "repro_torch.train.optimizer, repro_torch.train.train_step, repro_torch.launch.train, "
-            "repro_torch.launch.dryrun; "
+            "repro_torch.launch.dryrun, repro_torch.bench, repro_torch.core, repro_torch.kernels, "
+            "repro_torch.dist, repro_torch.train; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -1,9 +1,9 @@
 """The train step's options against the JAX package (`make_train_step`
 with 2 microbatches and float32 accumulation, fsdp's default bfloat16
-accumulation, int8 error feedback on a
-dense and an MoE arch, bfloat16 compute), and the port's own properties:
-remat off, per layer and grouped give bit-identical losses and gradients;
-1 and 4 microbatches agree as in
+accumulation, int8 error feedback on a dense and an MoE arch, bfloat16
+compute, an MoE arch dropping assignments in both dispatch modes), and
+the port's own properties: remat off, per layer and grouped give
+bit-identical losses and gradients; 1 and 4 microbatches agree as in
 tests/test_train.py::test_microbatch_equals_full_batch; the compute-dtype
 cast reaches the leaves the reference's `cast_params` reaches."""
 import dataclasses
@@ -21,8 +21,8 @@ from repro_torch.train import train_step as TS
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.stacks import members, rank, reference_leaves
 from repro_torch.train.train_step import cast_leaves, init_train_state, make_train_step, value_and_grad
-from test_torch_train_step import (check_params, check_steps, flat, port_steps, reference_run,  # noqa: F401
-                                   two_torch_threads, with_memory)
+from test_torch_train_step import (check_gradients, check_params, check_steps, flat, port_steps,  # noqa: F401
+                                   reference_run, two_torch_threads, with_memory)
 
 # int8 error feedback: a gradient element within rounding of a quantization
 # boundary rounds to neighbouring int8 levels in the two packages; its
@@ -191,3 +191,47 @@ def test_accumulation_dtype_follows_fsdp():
             mp.setattr(TS, "adamw_update", spy)
             make_train_step(cfg, AdamWConfig(), num_microbatches=2, attn_chunk=8)(state, batch)
         assert seen["dtype"] == want
+
+
+# Dropped assignments (capacity_factor under the expert count, which
+# `reduced()` sets so that nothing drops): the same assignments drop in both
+# packages and the combine reads them as zero.  Measured on the CPU (both
+# dispatch modes): the first batch drops 123 and 115 of each layer's 512
+# assignments at capacity_factor 1.0, 277 and 292 at 0.5; gradients within
+# 1.23e-6 of each leaf's largest, steps within 7.7e-7, parameters after 4
+# steps within 2.12e-4 (lm_head, 1.0), the others within 6.7e-5.
+PARAM_TOL_MOE_DROPS = {"lm_head": 6e-4}
+
+
+@pytest.fixture
+def dropped(monkeypatch) -> list:
+    """The port's dropped assignments, one count per dispatch call."""
+    from repro_torch.models import moe
+
+    counts = []
+    remap, slots = moe.dispatch_remap, moe.onehot_slots
+
+    def counting_remap(*a, **k):
+        buffers, meta = remap(*a, **k)
+        counts.append(int((~meta["keep"]).sum()))
+        return buffers, meta
+
+    def counting_slots(*a, **k):
+        slot, keep = slots(*a, **k)
+        counts.append(int((~keep).sum()))
+        return slot, keep
+
+    monkeypatch.setattr(moe, "dispatch_remap", counting_remap)
+    monkeypatch.setattr(moe, "onehot_slots", counting_slots)
+    return counts
+
+
+@pytest.mark.parametrize("dispatch", ["remap", "onehot"])
+@pytest.mark.parametrize("capacity_factor", [1.0, 0.5])
+def test_moe_drops_match_reference(capacity_factor, dispatch, dropped):
+    run = reference_run("phi3.5-moe-42b-a6.6b", moe=dict(capacity_factor=capacity_factor, dispatch=dispatch))
+    check_gradients(run)
+    assert dropped and sum(dropped) > 0, dropped
+    steps, final = port_steps(run)
+    check_steps(run, steps)
+    check_params(run, final, named={(run.arch, k): v for k, v in PARAM_TOL_MOE_DROPS.items()})

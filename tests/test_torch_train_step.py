@@ -141,19 +141,23 @@ def rounded_once(tree, seed: int):
 
 
 def reference_run(arch: str, *, compute_dtype: str | None = None, grads: bool = True, noise_seeds: tuple = (),
-                  overrides: dict | None = None, opt: dict | None = None, **step_kw) -> Run:
+                  overrides: dict | None = None, moe: dict | None = None, opt: dict | None = None,
+                  **step_kw) -> Run:
     """The reference's gradients on the first batch and its 4 jitted steps;
     with `noise_seeds`, again from the initial parameters moved by one
     rounding (`rounded_once`) for each seed, through the same compiled
     functions, into `Run.spread`.  `overrides`: fields of the reduced
-    config set in both packages; `opt`: AdamWConfig fields beside OPT's,
-    in both."""
+    config set in both packages; `moe`: fields of its MoE config, in both;
+    `opt`: AdamWConfig fields beside OPT's, in both."""
     rcfg, cfg = ref_get_config(arch).reduced(), get_config(arch).reduced()
     if compute_dtype:
         rcfg = dataclasses.replace(rcfg, compute_dtype=compute_dtype)
         cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
     if overrides:
         rcfg, cfg = dataclasses.replace(rcfg, **overrides), dataclasses.replace(cfg, **overrides)
+    if moe:
+        rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(rcfg.moe, **moe))
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     opt_kw = dict(OPT, **(opt or {}))
     opt = RefAdamW(**opt_kw)
     state = ref_init(jax.random.PRNGKey(0), rcfg, opt, compress_grads=step_kw.get("compress_grads", False))
